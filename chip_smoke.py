@@ -45,8 +45,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-# peak rates of one H100 SXM (NVIDIA data sheet; the on-chip-measurement
-# guide): HBM bytes/s, and 32-bit integer multiply-adds/s taken as half
+# peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and
+# 32-bit integer multiply-adds/s taken as half
 # the 67 TFLOP/s float32 rate (an FMA is 2 FLOPs; an SM has 64 INT32 lanes
 # for 128 FP32 lanes)
 PEAK_BYTES_S = 3.35e12
