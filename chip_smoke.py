@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`zksnark_tpu_torch`) on one card.
 
-    python3 chip_smoke.py            # the full run: n = 2^20, three proves
-    python3 chip_smoke.py --log-n 12 --proves 1     # a quicker rehearsal
+    python3 chip_smoke.py                  # n = 2^20, three proves
+    python3 chip_smoke.py --profile TABLE  # and one prove broken down
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
@@ -13,8 +13,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    P = Q, P = -Q, P = inf, Q = inf, a malformed Z) and must equal its
    plain PyTorch version on the same CUDA inputs bit for bit; the edge
    cases built from real curve points must also equal the host curve
-   arithmetic.  Each kernel and its plain version are then timed with
-   CUDA events at the shape the main path gives it.
+   arithmetic.  Each kernel and its plain version then run on the same
+   random CUDA inputs at the shapes the main path gives it: the two
+   outputs must again be equal bit for bit, and both are timed with CUDA
+   events.
 3. reference: a small circuit (n = 2^3) proves on the card and with the
    plain versions on the CPU; the two proofs must be equal.
 4. path: the main path at full size — the square-chain circuit with
@@ -169,10 +171,10 @@ def rand_field(rng: np.random.Generator, p: int, shape) -> list:
     return np.array([v % p for v in vals], dtype=object).reshape(shape)
 
 
-def time_cuda(fn, iters: int) -> float:
-    """Mean milliseconds per call, CUDA events around `iters` calls after
-    a warm-up call."""
-    fn()
+def time_cuda(fn, iters: int):
+    """(mean milliseconds per call, CUDA events around `iters` calls after
+    a warm-up call; the warm-up call's output)."""
+    out = fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -181,7 +183,7 @@ def time_cuda(fn, iters: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, out
 
 
 def limb_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -317,7 +319,8 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
 
 
 def time_phase(dev, seed: int, results: dict) -> None:
-    """Each kernel and its plain version at the main path's shape."""
+    """Each kernel and its plain version at the main path's shapes: both
+    timed, and their outputs compared (`path_shape_err`)."""
     from zksnark_tpu_torch.curve import jacobian as jac
     from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
     from zksnark_tpu_torch.field.limb import FQ_CTX, FR_CTX
@@ -344,15 +347,27 @@ def time_phase(dev, seed: int, results: dict) -> None:
     for ctx, name in ((FR_CTX, "montmul_fr"), (FQ_CTX, "montmul_fq")):
         n = shapes[name]
         a, b = rnd(n, ctx), rnd(n, ctx)
-        ms = time_cuda(lambda: mm.mont_mul_cuda(ctx, a, b), 50)
-        plain_ms = time_cuda(lambda: mm.mont_mul_plain(ctx, a, b), 3)
+        ms, got = time_cuda(lambda: mm.mont_mul_cuda(ctx, a, b), 50)
+        plain_ms, want = time_cuda(lambda: mm.mont_mul_plain(ctx, a, b), 3)
+        err = limb_err(got, want)
+        checked = [n]
+        if ctx is FR_CTX:
+            # and the witness x R^2 of a prove: 2^20 products with one
+            # broadcast constant
+            w = rnd(1 << 20, ctx)
+            r2 = ctx.const("r2", dev)
+            err = max(err, limb_err(mm.mont_mul_cuda(ctx, w, r2),
+                                    mm.mont_mul_plain(ctx, w, r2)))
+            checked.append(w.shape[0])
         byt = 3 * 32 * n
         ops_n = IMAD_PER_MUL * n
         results[name].update(shape=[n], ms=ms, plain_ms=plain_ms,
+                             path_shape_err=err, checked_shapes=checked,
                              **bound(byt, ops_n))
         log(f"[timing] {name} n={n}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {results[name]['bound_ms']:.4f} ms "
-            f"({results[name]['bound_by']})")
+            f"({results[name]['bound_by']}); max |kernel - plain| at "
+            f"n={checked} = {err}")
 
     for ops, g in ((FQ_OPS, "g1"), (FQ2_OPS, "g2")):
         elem = () if g == "g1" else (2,)
@@ -366,20 +381,24 @@ def time_phase(dev, seed: int, results: dict) -> None:
             kern = getattr(ck, op)
             plain = getattr(ck, f"{op}_plain")
             args = (P,) if op == "double" else (P, Q)
-            ms = time_cuda(lambda: kern(ops, *args), 20)
-            plain_ms = time_cuda(lambda: plain(ops, *args), 2)
+            ms, got = time_cuda(lambda: kern(ops, *args), 20)
+            plain_ms, want = time_cuda(lambda: plain(ops, *args), 2)
+            err = max(limb_err(a, b) for a, b in zip(got, want))
+            del got, want
             cnt = CountingOps(ops)
             plain(cnt, *(jac.JPoint(*(c[:1] for c in a)) for a in args))
             elem_b = 32 * (1 if g == "g1" else 2)
             byt = elem_b * 3 * (len(args) + 1) * n
             ops_n = (cnt.muls * IMAD_PER_MUL + cnt.adds * OPS_PER_ADD) * n
             results[name].update(shape=[n], ms=ms, plain_ms=plain_ms,
+                                 path_shape_err=err, checked_shapes=[n],
                                  fq_muls=cnt.muls, fq_adds=cnt.adds,
                                  **bound(byt, ops_n))
             log(f"[timing] {name} n={n}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.3f} ms, bound {results[name]['bound_ms']:.5f} "
                 f"ms ({results[name]['bound_by']}; {cnt.muls} Fq muls, "
-                f"{cnt.adds} Fq adds per point)")
+                f"{cnt.adds} Fq adds per point); max |kernel - plain| = "
+                f"{err}")
 
 
 def bound(nbytes: int, nops: int) -> dict:
@@ -564,9 +583,8 @@ def profile_phase(dqap, crs, wit, table_path: str) -> None:
 
 
 def main(argv=None) -> int:
+    log_n, n_proves = 20, 3
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--log-n", type=int, default=20)
-    ap.add_argument("--proves", type=int, default=3)
     ap.add_argument("--profile", metavar="TABLE",
                     help="after the path, break one prove down by stage "
                     "and by kernel (torch.profiler) and write the "
@@ -599,8 +617,11 @@ def main(argv=None) -> int:
         if bad:
             raise SystemExit(f"kernels disagree: {bad}")
         time_phase(dev, SEED, results)
+        bad = [k for k, r in results.items() if r["path_shape_err"] != 0]
+        if bad:
+            raise SystemExit(f"kernels disagree at the path's shapes: {bad}")
     reference_phase(dev)
-    path = path_phase(dev, args.log_n, args.proves)
+    path = path_phase(dev, log_n, n_proves)
     if args.profile:
         profile_phase(*path["state"], args.profile)
 
@@ -611,13 +632,15 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": SOURCES[op],
             "replaces": TPU_KERNELS[op],
             "launches": path["launches"][name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "max_abs_err": max(r["max_abs_err"], r["path_shape_err"]),
+            "path_shape_err": r["path_shape_err"],
+            "checked_shapes": r["checked_shapes"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"],
             "launches_per_prove": path["proves"][-1]["launches"][name],
         })
-    log(f"[path] n=2^{args.log_n}: setup {path['setup_s']:.2f} s, prove "
+    log(f"[path] n=2^{log_n}: setup {path['setup_s']:.2f} s, prove "
         f"ms {[round(p['ms'], 1) for p in path['proves']]}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -18,8 +18,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..field import limb
-
 
 class JPoint(NamedTuple):
     x: torch.Tensor
@@ -69,23 +67,6 @@ def madd(ops, p: JPoint, q: JPoint, out=None) -> JPoint:
     return ck.madd(ops, p, q, out)
 
 
-def _fast_mul(ops, a, b):
-    """Field multiply on the montmul kernel (Karatsuba on top of it for
-    Fq2); the batch_normalize hot path."""
-    from ..ops.montmul import mont_mul
-
-    c = ops.ctx
-    if ops.elem_ndim == 1:
-        return mont_mul(c, a, b)
-    a, b = torch.broadcast_tensors(a, b)
-    a0, a1 = a[..., 0, :], a[..., 1, :]
-    b0, b1 = b[..., 0, :], b[..., 1, :]
-    t = mont_mul(c, torch.stack([a0, a1, limb.add(c, a0, a1)]),
-                 torch.stack([b0, b1, limb.add(c, b0, b1)]))
-    return torch.stack([limb.sub(c, t[0], t[1]),
-                        limb.sub(c, limb.sub(c, t[2], t[0]), t[1])], dim=-2)
-
-
 def _prefix_prod(ops, x):
     """Inclusive prefix products of a (n, elem) field array: two-level
     chunked scan (64 sequential positions, n/64 lanes), ~2n products."""
@@ -99,13 +80,13 @@ def _prefix_prod(ops, x):
     within = torch.empty((c, b) + elem, dtype=x.dtype, device=x.device)
     acc = ops.one((b,), x.device)
     for j in range(c):
-        acc = _fast_mul(ops, acc, grid[j])
+        acc = ops.mul(acc, grid[j])
         within[j] = acc
     within = within.transpose(0, 1)                        # (b, c, elem)
     if b > 1:
         shifted = torch.cat([ops.one((1,), x.device), acc[:-1]])
         carry = _prefix_prod(ops, shifted)                 # exclusive carries
-        within = _fast_mul(ops, carry.unsqueeze(1), within)
+        within = ops.mul(carry.unsqueeze(1), within)
     return within.reshape((b * c,) + elem)[:n]
 
 
@@ -114,6 +95,7 @@ def batch_normalize(ops, p: JPoint) -> JPoint:
     """Batched Jacobian -> affine-or-infinity (Z in {0, one}) with ONE
     field inversion: Montgomery's trick as two prefix-product scans plus
     a single host inverse.  Establishes the precondition for `madd`."""
+    ops = ops.on_kernel()
     e = ops.elem_ndim
     batch_shape = p.z.shape[:p.z.dim() - e]
     n = 1
@@ -149,11 +131,11 @@ def batch_normalize(ops, p: JPoint) -> JPoint:
     one = ops.one(pre.shape[:1], dev)
     pre_ex = torch.cat([one[:1], pre[:-1]])          # prod_{j<i} z_j
     suf_ex = torch.cat([suf[1:], one[:1]])           # prod_{j>i} z_j
-    zinv = _fast_mul(ops, _fast_mul(ops, pre_ex, suf_ex), tinv_m.unsqueeze(0))
-    zi2 = _fast_mul(ops, zinv, zinv)
-    zi3 = _fast_mul(ops, zi2, zinv)
-    x = ops.select(inf, one, _fast_mul(ops, flat.x, zi2))
-    y = ops.select(inf, one, _fast_mul(ops, flat.y, zi3))
+    zinv = ops.mul(ops.mul(pre_ex, suf_ex), tinv_m.unsqueeze(0))
+    zi2 = ops.mul(zinv, zinv)
+    zi3 = ops.mul(zi2, zinv)
+    x = ops.select(inf, one, ops.mul(flat.x, zi2))
+    y = ops.select(inf, one, ops.mul(flat.y, zi3))
     zz = ops.select(inf, torch.zeros_like(one), one)
     return JPoint(*(a.reshape(batch_shape + a.shape[1:])
                     for a in (x, y, zz)))

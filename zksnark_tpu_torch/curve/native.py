@@ -2,7 +2,9 @@
 
 The port's own copy of the JAX package's bridge: it compiles the
 repository's C++ source into the port's build directory
-(`zksnark_tpu_torch/_build/`) at first use and loads it from there.  When
+(`zksnark_tpu_torch/_build/`) at first use and loads it from there; the
+library's name carries a hash of the source and its header, so an
+edited source is rebuilt.  When
 the source or a C++ compiler is missing, or the build fails, it falls back
 to the pure-Python pairing of `curve.bn254` (host code, not the device
 path).
@@ -16,6 +18,7 @@ elements; G1 = x||y, G2 = x0||x1||y0||y1; infinity = all-zero.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from typing import Optional, Sequence, Tuple
@@ -34,8 +37,13 @@ def _load() -> Optional[ctypes.CDLL]:
         return _LIB
     _TRIED = True
     src = os.path.join(_NATIVE_DIR, "bn254.cc")
-    so = os.path.join(_BUILD_DIR, "libbn254_host.so")
     try:
+        h = hashlib.sha256()
+        for name in ("bn254.cc", "bn254_constants.h"):
+            with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
+        so = os.path.join(_BUILD_DIR, f"libbn254_host_{digest}.so")
         if not os.path.exists(so):
             os.makedirs(_BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
