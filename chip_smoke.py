@@ -8,15 +8,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. build: `nvcc` compiles every kernel source under
    `zksnark_tpu_torch/csrc/` (one process per source, in parallel).
-2. kernels: each kernel — K1 montmul (Fr, Fq), K2 madd, K3 add, K4 double
-   (G1, G2) — runs on 2^16 random inputs plus the edge cases (0, 1, p-1;
-   P = Q, P = -Q, P = inf, Q = inf, a malformed Z) and must equal its
-   plain PyTorch version on the same CUDA inputs bit for bit; the edge
-   cases built from real curve points must also equal the host curve
-   arithmetic.  Each kernel and its plain version then run on the same
-   random CUDA inputs at the shapes the main path gives it: the two
-   outputs must again be equal bit for bit, and both are timed with CUDA
-   events.
+2. kernels: each kernel entry — K1 montmul (Fr, Fq); K2 madd, K3 add,
+   K4 double (G1, G2); and the MSM's chains K3 add_scan, K4 double_n and
+   horner (G1, G2) — runs on 2^16 random inputs plus the edge cases (0,
+   1, p-1; P = Q, P = -Q, P = inf, Q = inf, a malformed Z; for the chains
+   a step at infinity, a step equal to the accumulator, a step equal to
+   its negation, a lane all at infinity, k = 0 and 1, window sums at
+   infinity) and must equal its plain PyTorch version on the same CUDA
+   inputs bit for bit; the edge cases built from real curve points must
+   also equal the host curve arithmetic.  Each entry and its plain
+   version then run on the same random CUDA inputs at the shapes the
+   main path gives it: the two outputs must again be equal bit for bit,
+   and both are timed with CUDA events, the chains also beside the loop
+   of elementwise launches that each replaces.
 3. reference: a small circuit (n = 2^3) proves on the card and with the
    plain versions on the CPU; the two proofs must be equal.
 4. path: the main path at full size — the square-chain circuit with
@@ -24,7 +28,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    `device_prove` calls with distinct blindings; each proof must verify
    on its public input x and be rejected on x + 1.  The kernel launch
    counts are reset just before setup and read after it and after each
-   prove; every kernel must have launched.
+   prove; every kernel entry of the path must have launched (all but the
+   elementwise double, whose chains now run in double_n and horner).
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit (nvidia-smi), and {"ok": true, "device": {...}}.  Imports nothing of
@@ -37,6 +42,7 @@ import argparse
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -67,13 +73,22 @@ TPU_KERNELS = {
     "madd": "zksnark_tpu/ops/curve_pallas.py:291",
     "add": "zksnark_tpu/ops/curve_pallas.py:281",
     "double": "zksnark_tpu/ops/curve_pallas.py:301",
+    "add_scan": "zksnark_tpu/ops/curve_pallas.py:281",
+    "double_n": "zksnark_tpu/ops/curve_pallas.py:301",
+    "horner": "zksnark_tpu/ops/curve_pallas.py:301",
 }
 SOURCES = {
     "montmul": "zksnark_tpu_torch/csrc/montmul.cu",
     "madd": "zksnark_tpu_torch/csrc/point_ops.cu",
     "add": "zksnark_tpu_torch/csrc/point_ops.cu",
     "double": "zksnark_tpu_torch/csrc/point_ops.cu",
+    "add_scan": "zksnark_tpu_torch/csrc/point_scan.cu",
+    "double_n": "zksnark_tpu_torch/csrc/point_ops.cu",
+    "horner": "zksnark_tpu_torch/csrc/point_scan.cu",
 }
+# the elementwise double has no launch on the main path: the MSM's
+# doubling chains run in double_n and horner
+OFF_PATH = ("double_g1", "double_g2")
 
 
 def log(msg: str) -> None:
@@ -317,6 +332,95 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
                 f"plain| = {err}, edge cases vs host curve "
                 f"{'ok' if sem else 'FAIL'}")
 
+        # -- the chains ----------------------------------------------------
+        def affine(p):
+            aff = jac.to_affine_np(ops, p)
+            return [None if a is None else a if g1 else tuple(map(tuple, a))
+                    for a in aff]
+
+        def err_of(a, b):
+            return max(limb_err(u, v) for u, v in zip(a, b))
+
+        # add_scan: random lanes, (B, 16 steps, 16), a step at infinity
+        # 1 time in 16; edge lanes (4, 4, 1): A + A doubles, then a step
+        # at infinity; C + (-C) cancels, then D + D doubles; all at
+        # infinity; and A + A, + B, + (-B) with another Z
+        P_inf = P_rand._replace(z=ops.select(
+            zmask, ops.zero((n_rand,), dev), P_rand.z))
+        grid_r = jac.JPoint(*(c.reshape((n_rand // 256, 16, 16) + c.shape[1:])
+                              for c in P_inf))
+        lanes = [[A, A, B, None], [C, hneg(C), D, D], [None] * 4]
+        grid_e = cat(pts([p for lane in lanes for p in lane]),
+                     scaled(pts([A, A, B, hneg(B)]), 7))
+        grid_e = jac.JPoint(*(c.reshape((4, 4, 1) + c.shape[1:])
+                              for c in grid_e))
+        err = 0
+        for grid in (grid_r, grid_e):
+            for collect in (True, False):
+                got = ck.add_scan(ops, grid, collect)
+                want = ck.add_scan_plain(ops, grid, collect)
+                torch.cuda.synchronize()
+                err = max(err, err_of(got[0], want[0]))
+                if collect:
+                    err = max(err, err_of(got[1], want[1]))
+        totals = ck.add_scan(ops, grid_e, False)[0]
+        sem = affine(jac.JPoint(*(c[:, 0] for c in totals))) == [
+            hadd(hadd(A, A), B), hadd(D, D), None, hadd(A, A)]
+        n_pts = grid_r.z.shape[0] * 256 + 16
+        results[f"add_scan_{g}"] = {"max_abs_err": err, "bit_exact": err == 0,
+                                    "host_edge_ok": sem, "n_checked": n_pts}
+        log(f"[kernels] add_scan_{g}: {n_pts} points in lanes of 16 and 4 "
+            f"steps, collect on and off, max |kernel - plain| = {err}, edge "
+            f"lanes vs host curve {'ok' if sem else 'FAIL'}")
+
+        # double_n: k = 0, 1, 16 on random points and on A, 5C, inf
+        pd = cat(P_rand, pts([A]), scaled(pts([C]), 5), pts([None]))
+        err, sem = 0, True
+        for k in (0, 1, 16):
+            got = ck.double_n(ops, pd, k)
+            want = ck.double_n_plain(ops, pd, k)
+            torch.cuda.synchronize()
+            err = max(err, err_of(got, want))
+            sem &= affine(jac.JPoint(*(c[n_rand:] for c in got))) == [
+                smul(A, 1 << k), smul(C, 1 << k), None]
+        results[f"double_n_{g}"] = {"max_abs_err": err, "bit_exact": err == 0,
+                                    "host_edge_ok": sem,
+                                    "n_checked": pd.z.shape[0]}
+        log(f"[kernels] double_n_{g}: {pd.z.shape[0]} points, k = 0, 1, 16, "
+            f"max |kernel - plain| = {err}, edge points vs host curve "
+            f"{'ok' if sem else 'FAIL'}")
+
+        # horner: random window sums (16 windows x m MSMs, a sum at
+        # infinity 1 time in 16) and (4 windows x 3 MSMs) of real points:
+        # all finite, all at infinity, every other one at infinity
+        m = min(256, n_rand // 16)
+        sums_r = jac.JPoint(*(c[:16 * m].reshape((16, m) + c.shape[1:])
+                              for c in P_inf))
+        cols = [[A, B, C, D], [None] * 4, [A, None, B, None]]
+        sums_e = pts([cols[m][w] for w in range(4) for m in range(3)])
+        sums_e = jac.JPoint(*(c.reshape((4, 3) + c.shape[1:])
+                              for c in sums_e))
+        err = 0
+        for sums in (sums_r, sums_e):
+            got = ck.horner(ops, sums, 16)
+            want = ck.horner_plain(ops, sums, 16)
+            torch.cuda.synchronize()
+            err = max(err, err_of(got, want))
+        r = FR_CTX.p
+        host_want = []
+        for col in cols:
+            acc = None
+            for w, h in enumerate(col):
+                if h is not None:
+                    acc = hadd(acc, smul(h, pow(2, 16 * w, r)))
+            host_want.append(acc)
+        sem = affine(ck.horner(ops, sums_e, 16)) == host_want
+        results[f"horner_{g}"] = {"max_abs_err": err, "bit_exact": err == 0,
+                                  "host_edge_ok": sem, "n_checked": m + 3}
+        log(f"[kernels] horner_{g}: {m} + 3 MSMs of 16 and 4 windows, c = "
+            f"16, max |kernel - plain| = {err}, edge MSMs vs host curve "
+            f"{'ok' if sem else 'FAIL'}")
+
 
 def time_phase(dev, seed: int, results: dict) -> None:
     """Each kernel and its plain version at the main path's shapes: both
@@ -337,13 +441,7 @@ def time_phase(dev, seed: int, results: dict) -> None:
         t[..., 7] &= 0x0FFFFFFF
         return t.to(torch.int32)
 
-    # shapes: montmul_fr at an NTT stage of n = 2^20 (n/2 products);
-    # montmul_fq at a batch_normalize prefix-product step (2^20 / 64);
-    # madd at an MSM scan step (16 windows x 2^14 chunks); add at the MSM
-    # bucket ends (16 windows x 2^16 buckets); double at the Abel step
-    # (one point per window)
-    shapes = {"montmul_fr": 1 << 19, "montmul_fq": 1 << 14,
-              "madd": 1 << 18, "add": 1 << 20, "double": 16}
+    shapes = PATH_SHAPES
     for ctx, name in ((FR_CTX, "montmul_fr"), (FQ_CTX, "montmul_fq")):
         n = shapes[name]
         a, b = rnd(n, ctx), rnd(n, ctx)
@@ -399,6 +497,216 @@ def time_phase(dev, seed: int, results: dict) -> None:
                 f"ms ({results[name]['bound_by']}; {cnt.muls} Fq muls, "
                 f"{cnt.adds} Fq adds per point); max |kernel - plain| = "
                 f"{err}")
+            if op == "add":
+                # the add's other shapes on the path, kernel and plain
+                per_shape = [{"shape": [n], "ms": ms, "plain_ms": plain_ms,
+                              "err": err, **bound(byt, ops_n)}]
+                for m in ADD_SHAPES[1:]:
+                    a2 = [jac.JPoint(*(c[:m] for c in a)) for a in args]
+                    m_ms, got = time_cuda(lambda: kern(ops, *a2), 20)
+                    m_plain, want = time_cuda(lambda: plain(ops, *a2), 2)
+                    m_err = max(limb_err(a, b) for a, b in zip(got, want))
+                    per_shape.append({
+                        "shape": [m], "ms": m_ms, "plain_ms": m_plain,
+                        "err": m_err, **bound(byt * m // n, ops_n * m // n)})
+                    log(f"[timing] {name} n={m}: kernel {m_ms:.4f} ms, "
+                        f"plain {m_plain:.3f} ms, bound "
+                        f"{per_shape[-1]['bound_ms']:.5f} ms; max |kernel "
+                        f"- plain| = {m_err}")
+                results[name].update(
+                    per_shape=per_shape, checked_shapes=ADD_SHAPES,
+                    path_shape_err=max(p["err"] for p in per_shape))
+
+        chain_timing(ops, g, lambda n: jac.JPoint(
+            rnd(n, FQ_CTX, elem), rnd(n, FQ_CTX, elem),
+            rnd(n, FQ_CTX, elem)), results)
+
+
+# shapes: montmul_fr at an NTT stage of n = 2^20 (n/2 products);
+# montmul_fq at a batch_normalize prefix-product step (2^20 / 64); madd at
+# an MSM scan step (16 windows x 2^14 chunks); add at the MSM bucket ends
+# (16 windows x 2^16 buckets); double at the former Abel step (one point
+# per window)
+PATH_SHAPES = {"montmul_fr": 1 << 19, "montmul_fq": 1 << 14,
+               "madd": 1 << 18, "add": 1 << 20, "double": 16}
+# the elementwise add's shapes in one 2^20 MSM (c = 16): bucket ends,
+# the two chunk-carry fix-ups, the small Hillis-Steele rounds, E_top and
+# the Abel subtraction (2^20, 2^18, 4096, 64 twice, 16 twice)
+ADD_SHAPES = [1 << 20, 1 << 18, 4096, 64, 16]
+# the chains at the shapes of one 2^20 MSM (c = 16: W = 16 windows, 2^14
+# chunks of 64 sorted points per window): (chunks, steps, lanes per chunk,
+# collect) of the two chunk-carry scans and the three tree-sum levels
+SCAN_SHAPES = [(256, 64, 16, True), (4, 64, 16, True), (1024, 64, 16, False),
+               (16, 64, 16, False), (1, 16, 16, False)]
+DOUBLE_N_SHAPE = (16, 16)        # Abel: 2^16 E_top, one point per window
+# Horner: W windows, c doublings each, MSMs side by side (a prove's four
+# G1 MSMs share one launch; its G2 MSM has its own)
+HORNER_SHAPE = {"g1": (16, 16, 4), "g2": (16, 16, 1)}
+
+
+def loop_add_scan(ops, grid, collect):
+    """What add_scan replaced (the MSM's _scan_chunks before it): a
+    transposed (c, B, ...) copy, then one elementwise add launch per
+    step, each writing its prefix in place."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    g = jac.JPoint(*(a.transpose(0, 1).contiguous() for a in grid))
+    acc = jac.infinity(ops, g.z.shape[1:g.z.dim() - ops.elem_ndim],
+                       g.z.device)
+    within = jac.JPoint(*(torch.empty_like(a) for a in g)) if collect \
+        else None
+    for j in range(g.z.shape[0]):
+        out = jac.JPoint(*(a[j] for a in within)) if collect else None
+        acc = ck.add(ops, acc, jac.JPoint(*(a[j] for a in g)), out=out)
+    return acc, within
+
+
+def loop_double_n(ops, p, k):
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    for _ in range(k):
+        p = ck.double(ops, p)
+    return p
+
+
+def loop_horner(ops, sums, c):
+    """What horner replaced: per MSM (column of sums), c elementwise
+    doubling launches and one add launch per window."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    outs = []
+    for m in range(sums.z.shape[1]):
+        acc = jac.infinity(ops, (), sums.z.device)
+        for w in range(sums.z.shape[0] - 1, -1, -1):
+            acc = loop_double_n(ops, acc, c)
+            acc = ck.add(ops, acc, jac.JPoint(*(a[w, m] for a in sums)))
+        outs.append(acc)
+    return jac.JPoint(*(torch.stack(c) for c in zip(*outs)))
+
+
+def chain_timing(ops, g, rnd_pts, results) -> None:
+    """add_scan, double_n and horner at the path's shapes: each entry, its
+    plain version and the loop of elementwise launches it replaced, all
+    on the same inputs, timed and compared.  A row's ms / plain_ms /
+    loop_ms / bound_ms are the sums over its shapes: one MSM's worth (for
+    horner, one launch's: a prove's four G1 MSMs, or its G2 MSM)."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    elem_b = 32 * (1 if g == "g1" else 2)
+    cnt_add, cnt_dbl = CountingOps(ops), CountingOps(ops)
+    one = rnd_pts(1)
+    ck.add_plain(cnt_add, one, rnd_pts(1))
+    ck.double_plain(cnt_dbl, one)
+    add_ops = cnt_add.muls * IMAD_PER_MUL + cnt_add.adds * OPS_PER_ADD
+    dbl_ops = cnt_dbl.muls * IMAD_PER_MUL + cnt_dbl.adds * OPS_PER_ADD
+
+    def err_of(a, b):
+        return max(limb_err(u, v) for u, v in zip(a, b))
+
+    def scan_case(b, c, r, collect):
+        grid = jac.JPoint(*(a.reshape((b, c, r) + a.shape[1:])
+                            for a in rnd_pts(b * c * r)))
+        ms, got = time_cuda(lambda: ck.add_scan(ops, grid, collect), 10)
+        loop_ms, old = time_cuda(lambda: loop_add_scan(ops, grid, collect), 3)
+        plain_ms, want = time_cuda(
+            lambda: ck.add_scan_plain(ops, grid, collect), 1)
+        err = max(err_of(got[0], want[0]), err_of(old[0], want[0]))
+        if collect:
+            err = max(err, err_of(got[1], want[1]), err_of(
+                [a.transpose(0, 1) for a in old[1]], want[1]))
+        lanes = b * r
+        byt = elem_b * 3 * (lanes * c + lanes + (lanes * c if collect else 0))
+        return ([b, c, r, int(collect)], ms, loop_ms, plain_ms, err,
+                bound(byt, lanes * c * add_ops))
+
+    def double_n_case(n, k):
+        p = rnd_pts(n)
+        ms, got = time_cuda(lambda: ck.double_n(ops, p, k), 20)
+        loop_ms, old = time_cuda(lambda: loop_double_n(ops, p, k), 3)
+        plain_ms, want = time_cuda(lambda: ck.double_n_plain(ops, p, k), 1)
+        err = max(err_of(got, want), err_of(old, want))
+        return ([n, k], ms, loop_ms, plain_ms, err,
+                bound(elem_b * 3 * 2 * n, n * k * dbl_ops))
+
+    def horner_case(w, c, m):
+        sums = jac.JPoint(*(a.reshape((w, m) + a.shape[1:])
+                            for a in rnd_pts(w * m)))
+        ms, got = time_cuda(lambda: ck.horner(ops, sums, c), 20)
+        loop_ms, old = time_cuda(lambda: loop_horner(ops, sums, c), 3)
+        plain_ms, want = time_cuda(lambda: ck.horner_plain(ops, sums, c), 1)
+        err = max(err_of(got, want), err_of(old, want))
+        return ([w, c, m], ms, loop_ms, plain_ms, err,
+                bound(elem_b * 3 * (w + 1) * m,
+                      m * w * (c * dbl_ops + add_ops)))
+
+    # one thread's latency: 64 dependent adds (horner with c = 0 over 64
+    # window sums of one MSM) and 64 dependent doublings (double_n of one
+    # point): what bounds the small scans and the Horner tail
+    sums64 = jac.JPoint(*(a.reshape((64, 1) + a.shape[1:])
+                          for a in rnd_pts(64)))
+    add_us = time_cuda(lambda: ck.horner(ops, sums64, 0), 5)[0] * 1e3 / 64
+    one = rnd_pts(1)
+    dbl_us = time_cuda(lambda: ck.double_n(ops, one, 64), 5)[0] * 1e3 / 64
+    log(f"[timing] {g} one thread: {add_us:.2f} us per dependent add, "
+        f"{dbl_us:.2f} us per dependent doubling")
+
+    cases = {"add_scan": [scan_case(*s) for s in SCAN_SHAPES],
+             "double_n": [double_n_case(*DOUBLE_N_SHAPE)],
+             "horner": [horner_case(*HORNER_SHAPE[g])]}
+    for op, rows in cases.items():
+        name = f"{op}_{g}"
+        per_shape = []
+        for shape, ms, loop_ms, plain_ms, err, bnd in rows:
+            per_shape.append({"shape": shape, "ms": ms, "loop_ms": loop_ms,
+                              "plain_ms": plain_ms, "err": err, **bnd})
+            log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, loop of "
+                f"launches {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}); max |kernel "
+                f"- plain|, |loop - plain| = {err}")
+        tb = sum(p["bound_ms"] for p in per_shape)
+        by = max(per_shape, key=lambda p: p["bound_ms"])["bound_by"]
+        results[name].update(
+            shape=[p["shape"] for p in per_shape],
+            ms=sum(p["ms"] for p in per_shape),
+            loop_ms=sum(p["loop_ms"] for p in per_shape),
+            plain_ms=sum(p["plain_ms"] for p in per_shape),
+            path_shape_err=max(p["err"] for p in per_shape),
+            checked_shapes=[p["shape"] for p in per_shape],
+            bound_ms=tb, bound_by=by, per_shape=per_shape,
+            thread_add_us=add_us, thread_double_us=dbl_us)
+        log(f"[timing] {name}, summed over its shapes: kernel "
+            f"{results[name]['ms']:.4f} ms, loop of launches "
+            f"{results[name]['loop_ms']:.3f} ms, bound {tb:.5f} ms")
+
+
+def ptxas_summary(log_text: str) -> list:
+    """One line per kernel from nvcc's `-Xptxas -v` output: the kernel
+    (its name and template arguments read off the mangled name), its
+    registers and its spills."""
+    out, name, spill = [], "?", ""
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"\d+([a-z_0-9]*kernel[a-z_0-9]*)", mangled)
+            name = k.group(1) if k else mangled
+            if "Fe2" in mangled:
+                name += "<Fe2"
+            elif "Fe" in mangled:
+                name += "<Fe"
+            if "Lb1" in mangled:
+                name += ", mixed"
+            name += ">" if "<" in name else ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used \d+ registers", line)
+            out.append(f"{name}: {regs.group(0) if regs else line.strip()}"
+                       f", {spill}")
+    return out
 
 
 def bound(nbytes: int, nops: int) -> dict:
@@ -500,17 +808,20 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
         ok = protocol.verify(be, (crs.sigmag1, crs.sigmag2), [x], proof)
         bad = protocol.verify(be, (crs.sigmag1, crs.sigmag2), [x + 1], proof)
         vs = time.time() - t1
-        log(f"[path] prove {i}: {ms:.1f} ms; launches {launches}; verify "
-            f"[x] {ok}, [x+1] {bad} ({vs:.2f} s)")
+        k34 = sum(v for k, v in launches.items()
+                  if k.split("_g")[0] in ("add", "double", "add_scan",
+                                          "double_n", "horner"))
+        log(f"[path] prove {i}: {ms:.1f} ms; launches {launches} (K3 + K4: "
+            f"{k34}); verify [x] {ok}, [x+1] {bad} ({vs:.2f} s)")
         if not ok or bad:
             raise SystemExit(f"proof {i} failed verification "
                              f"(accept {ok}, tampered accept {bad})")
-        per_prove.append({"ms": ms, "launches": launches})
+        per_prove.append({"ms": ms, "launches": launches, "k3_k4": k34})
     total = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[path] launches over setup + {n_proves} proves: {total}; peak "
         f"device memory {peak:.2f} GiB")
-    zero = [k for k, v in total.items() if v == 0]
+    zero = [k for k, v in total.items() if v == 0 and k not in OFF_PATH]
     if zero:
         raise SystemExit(f"kernels never launched on the main path: {zero}")
     return {"launches": total, "setup_s": setup_s, "proves": per_prove,
@@ -605,9 +916,8 @@ def main(argv=None) -> int:
     log(f"[build] kernels built in {time.time() - t0:.1f} s (nvcc "
         f"{_build.build_seconds:.1f} s)")
     for src in _build.SOURCES:
-        for line in _build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {src}: {line.strip()}")
+        for line in ptxas_summary(_build.build_log(src)):
+            log(f"[build] {src}: {line}")
 
     results: dict = {}
     with torch.inference_mode():
@@ -639,6 +949,7 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"],
             "launches_per_prove": path["proves"][-1]["launches"][name],
+            **({"loop_ms": r["loop_ms"]} if "loop_ms" in r else {}),
         })
     log(f"[path] n=2^{log_n}: setup {path['setup_s']:.2f} s, prove "
         f"ms {[round(p['ms'], 1) for p in path['proves']]}")

@@ -9,6 +9,11 @@ window.  The two
 packages run the same algorithm on the same residues, so the raw Jacobian
 results are compared, as well as the affine result against the host
 curve.  Tolerance: exact equality.
+
+Every point is a known multiple k G of the generator, so a host
+expectation is one scalar multiplication, (sum k_i s_i) G.  The JAX
+package's MSMs run asynchronously: each test dispatches them first and
+the port computes meanwhile.
 """
 
 import random
@@ -34,11 +39,34 @@ rng = random.Random(4242)
 torch.set_num_threads(1)     # small tensors: threads only add overhead
 
 
+_G1_POW2 = []                # 2^i G, built on first use
+
+
+def _g1_mul(k):
+    """k G on the host, from the table of 2^i G (one host add per set
+    bit)."""
+    if not _G1_POW2:
+        p = hc.G1_GEN_PT
+        for _ in range(256):
+            _G1_POW2.append(p)
+            p = hc.g1_add(p, p)
+    acc = None
+    for i in range((k % R).bit_length()):
+        if (k % R) >> i & 1:
+            acc = hc.g1_add(acc, _G1_POW2[i])
+    return acc
+
+
 def _g1(ks):
-    host = [hc.g1_scalar_mul(hc.G1_GEN_PT, k) for k in ks]
+    host = [_g1_mul(k) for k in ks]
     return host, jac.from_affine(
         FQ_OPS, torch.from_numpy(FQ_OPS.to_mont_np([p[0] for p in host])),
         torch.from_numpy(FQ_OPS.to_mont_np([p[1] for p in host])))
+
+
+def _expect_g1(ks, scalars):
+    """sum s_i (k_i G) = (sum k_i s_i) G."""
+    return _g1_mul(sum(k * s for k, s in zip(ks, scalars)))
 
 
 def _scalars(vals):
@@ -64,39 +92,52 @@ def _assert_raw_equal(port, jax_pt):
 
 
 def test_msm_matches_jax_and_host():
-    """Random points and scalars, with zero scalars, an infinity point and
-    a scalar whose only nonzero digit is in the top window."""
+    """Random points and scalars at 4-bit windows (what pick_window_bits
+    gives for 64 points), with zero scalars, an infinity point and a
+    scalar whose only nonzero digit is in the top window."""
     n = 23
-    host, P = _g1([rng.randrange(1, R) for _ in range(n)])
+    ks = [rng.randrange(1, R) for _ in range(n)]
+    _, P = _g1(ks)
     inf = jac.infinity(FQ_OPS, (1,))
     P = jac.JPoint(*(torch.cat([a[:-1], b]) for a, b in zip(P, inf)))
-    host[-1] = None
+    ks[-1] = 0
     svals = [rng.randrange(R) for _ in range(n)]
     for i in (2, 5, 11, 17):
         svals[i] = 0
-    svals[7] = (177 << 248) % R
-    s = _scalars(svals)
-    got = msm.msm(FQ_OPS, P, s, window_bits=8)
+    svals[7] = 3 << 252                  # < R: the top window's digit only
     want = jmsm.msm(J_FQ, _to_jax(P), jnp.asarray(
-        jlimb.FR_CTX.to_limbs_np(svals)), window_bits=8)
+        jlimb.FR_CTX.to_limbs_np(svals)), window_bits=4)
+    got = msm.msm(FQ_OPS, P, _scalars(svals), window_bits=4)
     _assert_raw_equal(got, want)
-    assert jac.to_affine_np(FQ_OPS, got) == _expect(host, svals)
+    assert jac.to_affine_np(FQ_OPS, got) == _expect_g1(ks, svals)
 
 
 def test_msm_naive_matches_jax():
     n = 8
-    host, P = _g1([rng.randrange(1, R) for _ in range(n)])
+    ks = [rng.randrange(1, R) for _ in range(n)]
+    _, P = _g1(ks)
     svals = [rng.randrange(R) for _ in range(n)]
-    got = msm.msm_naive(FQ_OPS, P, _scalars(svals))
     want = jmsm.msm_naive(J_FQ, _to_jax(P), jnp.asarray(
         jlimb.FR_CTX.to_limbs_np(svals)))
+    got = msm.msm_naive(FQ_OPS, P, _scalars(svals))
     _assert_raw_equal(got, want)
-    assert jac.to_affine_np(FQ_OPS, got) == _expect(host, svals)
+    assert jac.to_affine_np(FQ_OPS, got) == _expect_g1(ks, svals)
 
 
 def test_msm_cancelling_buckets():
     """Whole buckets (and run-end prefixes) summing to exactly infinity:
     the validity-flag forward fill must not inherit a previous bucket."""
+    # one cancelling bucket (3) among populated ones (5, 9), against JAX
+    ks2 = [rng.randrange(1, R) for _ in range(6)]
+    _, P2 = _g1(ks2)
+    neg2 = jac.neg(FQ_OPS, jac.JPoint(*(c[:2] for c in P2)))
+    pts2 = jac.JPoint(*(torch.cat([a[:2], b, a[2:]])
+                        for a, b in zip(P2, neg2)))
+    s2 = [3, 3, 3, 3, 5, 5, 9, 9]
+    want = jmsm.msm(J_FQ, _to_jax(pts2), jnp.asarray(
+        jlimb.FR_CTX.to_limbs_np(s2)), window_bits=4)
+
+    # every bucket cancels (8-bit windows)
     _, P = _g1([rng.randrange(1, R) for _ in range(8)])
     negP = jac.neg(FQ_OPS, P)
     pts = jac.JPoint(*(torch.cat([a, b]) for a, b in zip(P, negP)))
@@ -104,18 +145,9 @@ def test_msm_cancelling_buckets():
     assert jac.to_affine_np(FQ_OPS, msm.msm(
         FQ_OPS, pts, _scalars(s + s), window_bits=8)) is None
 
-    # one cancelling bucket (3) among populated ones (5, 9)
-    host2, P2 = _g1([rng.randrange(1, R) for _ in range(6)])
-    neg2 = jac.neg(FQ_OPS, jac.JPoint(*(c[:2] for c in P2)))
-    pts2 = jac.JPoint(*(torch.cat([a[:2], b, a[2:]])
-                        for a, b in zip(P2, neg2)))
-    s2 = [3, 3, 3, 3, 5, 5, 9, 9]
-    got = msm.msm(FQ_OPS, pts2, _scalars(s2), window_bits=8)
-    want = jmsm.msm(J_FQ, _to_jax(pts2), jnp.asarray(
-        jlimb.FR_CTX.to_limbs_np(s2)), window_bits=8)
+    got = msm.msm(FQ_OPS, pts2, _scalars(s2), window_bits=4)
     _assert_raw_equal(got, want)
-    expect = _expect(host2[2:], [5, 5, 9, 9])
-    assert jac.to_affine_np(FQ_OPS, got) == expect
+    assert jac.to_affine_np(FQ_OPS, got) == _expect_g1(ks2[2:], [5, 5, 9, 9])
 
 
 def test_msm_all_equal_points():
@@ -124,8 +156,7 @@ def test_msm_all_equal_points():
     n = 16
     pts = jac.JPoint(*(c.expand(n, -1).contiguous() for c in P1))
     got = msm.msm(FQ_OPS, pts, _scalars([R - 1] * n), window_bits=8)
-    assert jac.to_affine_np(FQ_OPS, got) == \
-        hc.g1_scalar_mul(hc.G1_GEN_PT, 12345 * (n * (R - 1)) % R)
+    assert jac.to_affine_np(FQ_OPS, got) == _g1_mul(12345 * n * (R - 1))
 
 
 def test_msm_affine_path_after_batch_normalize():
@@ -139,11 +170,8 @@ def test_msm_affine_path_after_batch_normalize():
     mixed = jac.select(FQ_OPS, mask, jac.infinity(FQ_OPS, (n,)), proj)
     norm = jac.batch_normalize(FQ_OPS, mixed)
     svals = [rng.randrange(R) for _ in range(n)]
-    expect = None
-    for i, (k, s) in enumerate(zip(ks, svals)):
-        if i % 11:
-            expect = hc.g1_add(expect, hc.g1_scalar_mul(
-                hc.G1_GEN_PT, 3 * k * s % R))
+    expect = _expect_g1([3 * k if i % 11 else 0 for i, k in enumerate(ks)],
+                        svals)
     got = msm.msm_windowed(FQ_OPS, norm, _scalars(svals), 4, affine=True)
     assert jac.to_affine_np(FQ_OPS, got) == expect
 

@@ -10,7 +10,11 @@ plain version).
   `.npz` checkpoint is the port's own CRS limb for limb, so it proves the
   same proof;
 - a port-saved `.npz` loads in `zksnark_tpu.utils.serialization.
-  device_crs_load` and proves there.
+  device_crs_load` as the JAX package's own CRS, array for array, and
+  proves there.
+The JAX package proves once, from the port-saved CRS it loaded: that CRS
+is its own array for array (checked), and `device_prove` is a function of
+its inputs, so the one proof stands for both.
 Tolerance: exact equality.
 """
 
@@ -36,20 +40,25 @@ torch.set_num_threads(1)     # small tensors: threads only add overhead
 
 
 @pytest.fixture(scope="module")
-def both():
+def both(tmp_path_factory):
     code = open("test_programs/simple.zk").read()
     r1cs = compiler.parse(code, FR)
     w = witness.weights(code, [3, 2, 4], FR)
     jq = jprover.compile_r1cs(r1cs)
     jcrs = jprover.device_setup(jq, trapdoor=TD)
-    jproof = jprover.device_prove(jq, jcrs, w, blinding=BL)
     port_r1cs = R1CS(u=r1cs.u, v=r1cs.v, w=r1cs.w, roots=r1cs.roots,
                      input=r1cs.input)
     dq = prover.compile_r1cs(port_r1cs, device="cpu")
     crs = prover.device_setup(dq, trapdoor=TD)
     proof = prover.device_prove(dq, crs, w, blinding=BL)
-    return dict(w=w, jq=jq, jcrs=jcrs, jproof=jproof, dq=dq, crs=crs,
-                proof=proof)
+    # the port's CRS through the JAX .npz checkpoint into the JAX package,
+    # which proves from it
+    path = str(tmp_path_factory.mktemp("crs") / "port_crs.npz")
+    ser.device_crs_save(path, crs)
+    jcrs_port = jser.device_crs_load(path)
+    jproof = jprover.device_prove(jq, jcrs_port, w, blinding=BL)
+    return dict(w=w, jq=jq, jcrs=jcrs, jcrs_port=jcrs_port, jproof=jproof,
+                dq=dq, crs=crs, proof=proof)
 
 
 def _proof_tuple(p):
@@ -138,12 +147,20 @@ def test_jax_npz_loads_in_port(both, tmp_path):
     _assert_same_points(loaded, both["crs"])
 
 
-def test_port_npz_loads_in_jax_and_proves(both, tmp_path):
-    path = str(tmp_path / "port_crs.npz")
-    ser.device_crs_save(path, both["crs"])
-    jcrs2 = jser.device_crs_load(path)
-    proof = jprover.device_prove(both["jq"], jcrs2, both["w"], blinding=BL)
-    assert _proof_tuple(proof) == _proof_tuple(both["proof"])
+def test_port_npz_loads_in_jax_and_proves(both):
+    """The JAX package loads the port-saved .npz as its own CRS (the same
+    arrays, dtypes and host parts) and proves the port's proof from it."""
+    loaded, own = both["jcrs_port"], both["jcrs"]
+    for name in ("xi_g1", "xi_t_g1", "sum_delta_g1", "xi_g2"):
+        for a, b in zip(getattr(loaded, name), getattr(own, name)):
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    for f in ("alpha", "beta", "delta", "sum_gamma"):
+        assert getattr(loaded.sigmag1, f) == getattr(own.sigmag1, f)
+    for f in ("beta", "gamma", "delta"):
+        assert getattr(loaded.sigmag2, f) == getattr(own.sigmag2, f)
+    assert _proof_tuple(both["jproof"]) == _proof_tuple(both["proof"])
 
 
 def test_port_npz_roundtrip(both, tmp_path):

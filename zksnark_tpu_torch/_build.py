@@ -30,7 +30,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # source -> the headers it includes
 SOURCES = {
     "montmul.cu": ("bn254_field.cuh",),
-    "point_ops.cu": ("bn254_field.cuh",),
+    "point_ops.cu": ("bn254_field.cuh", "point_core.cuh"),
+    "point_scan.cu": ("bn254_field.cuh", "point_core.cuh"),
 }
 
 _P = ctypes.c_void_p
@@ -42,6 +43,11 @@ SIGNATURES = {
         "zk_point_madd": [_I] + [_P] * 9 + [_LL, _P],
         "zk_point_add": [_I] + [_P] * 9 + [_LL, _P],
         "zk_point_double": [_I] + [_P] * 6 + [_LL, _P],
+        "zk_point_double_n": [_I] + [_P] * 6 + [_LL, _I, _P],
+    },
+    "point_scan.cu": {
+        "zk_point_add_scan": [_I] + [_P] * 9 + [_LL, _I, _LL, _I, _P],
+        "zk_point_horner": [_I] + [_P] * 6 + [_LL, _I, _I, _P],
     },
 }
 

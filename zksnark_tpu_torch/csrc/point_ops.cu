@@ -1,34 +1,31 @@
-// K2-K4: complete Jacobian point operations on BN254 G1 (over Fq) and G2
-// (over Fq2), one thread per point:
+// K2-K4, elementwise: complete Jacobian point operations on BN254 G1 (over
+// Fq) and G2 (over Fq2), one thread per point:
 //
-//   K2  madd   P + Q with Q affine or infinity (Z in {0, one}),
-//              madd-2007-bl; replaces zksnark_tpu/ops/curve_pallas.py
-//              _madd_kernel / _madd_core (:169-216, :291-298)
-//   K3  add    P + Q, add-2007-bl; replaces _add_kernel / _add_core
-//              (:219-265, :281-288)
-//   K4  double 2P, dbl-2009-l for a = 0; replaces _double_kernel /
-//              _double_core (:138-151, :301-307)
+//   K2  madd      P + Q with Q affine or infinity; replaces
+//                 zksnark_tpu/ops/curve_pallas.py _madd_kernel (:291-298)
+//   K3  add       P + Q; replaces _add_kernel (:281-288)
+//   K4  double    2P; replaces _double_kernel (:301-307)
+//   K4  double_n  2^k P: k doublings in registers, one launch where the
+//                 JAX package runs `_double_n` (zksnark_tpu/ops/msm.py:211,
+//                 a fori_loop of K4) and the MSM's Abel step would
+//                 otherwise take k launches
 //
-// All three were launched by _point_call (:337-356, pallas_call at :346).
-// The formulas, the order of the field operations and the edge cases are
-// exactly those of the Pallas cores, so raw Jacobian coordinates are bit
-// for bit those of the TPU kernels and of the plain PyTorch versions
-// (zksnark_tpu_torch/ops/curve_kernels.py):
-//   P = Q        madd doubles the affine Q (_double_affine_core),
-//                add falls back to dbl-2009-l on P;
-//   P = -Q       gives infinity (one, one, 0);
-//   Q = inf      gives P;  P = inf gives Q (applied last, in that order).
-// The masks are the TPU kernels' selects; the one difference is that the
-// doubling for P = Q is computed only in a thread whose P and Q are both
-// finite (a branch instead of a select): everywhere else the infinity
-// selects override it, so no result changes.
+// All of them were launched by _point_call (curve_pallas.py:337-356,
+// pallas_call at :346).  The formulas are the cores of point_core.cuh.
+// The sequential chains of the MSM (its add scans and its Horner tail) are
+// in point_scan.cu.
 //
-// Bound on the H100: integer throughput.  A G1 madd is ~16 Fq
-// multiplications (~270 IMAD-class instructions each, ~4k per point) for
-// 288 B of traffic (six 32 B inputs, three 32 B outputs); a G2 madd is
-// ~3x the multiplications for 2x the bytes.  One thread per point keeps
-// the whole formula in registers (G2 spills some); fusing the MSM's scan
-// steps into one kernel is later work.
+// Bound on the H100: integer throughput at the large shapes.  A G1 madd is
+// ~11 Fq multiplications (~270 IMAD-class instructions each, ~3k per
+// point) for 288 B of traffic (six 32 B inputs, three 32 B outputs); a G2
+// madd is ~3x the multiplications for 2x the bytes.  One thread per point
+// keeps the formula in registers: the cores' early returns and the add's
+// re-read of P shorten live ranges, and the rolled Montgomery loop
+// (bn254_field.cuh) keeps the code within the instruction cache; ptxas
+// then fits the G2 add and madd in 168 registers with a spill of 28-32
+// bytes, its own choice over a spill-free allocation with fewer blocks
+// per SM (PERF.md).  At small shapes (double_n on the 16 window totals)
+// the bound is the latency of one thread's chain.
 //
 // Layout: each coordinate is an (n, 8) (G1) or (n, 2, 8) (G2) array of
 // u32 limbs, contiguous and 16-byte aligned.  Outputs may alias inputs
@@ -39,180 +36,53 @@
 
 #include <cuda_runtime.h>
 
-#include "bn254_field.cuh"
+#include "point_core.cuh"
 
 namespace {
 
 using bn254::Fe;
 using bn254::Fe2;
-using bn254::fadd;
-using bn254::fdbl;
-using bn254::fmul;
-using bn254::fsel;
-using bn254::fsqr;
-using bn254::fsub;
-using bn254::fzero;
+using bn254::Pt;
 
-template <class E>
-struct Pt {
-  E x, y, z;
-};
-
-// dbl-2009-l (_double_core)
-template <class E>
-__device__ __forceinline__ Pt<E> double_core(const E& x, const E& y,
-                                             const E& z) {
-  E a = fsqr(x);
-  E b = fsqr(y);
-  E c = fsqr(b);
-  E d = fsub(fsqr(fadd(x, b)), fadd(a, c));
-  d = fdbl(d);
-  E e = fadd(fdbl(a), a);
-  E f = fsqr(e);
-  Pt<E> r;
-  r.x = fsub(f, fdbl(d));
-  E c8 = fdbl(fdbl(fdbl(c)));
-  r.y = fsub(fmul(e, fsub(d, r.x)), c8);
-  r.z = fdbl(fmul(y, z));
-  return r;
-}
-
-// dbl-2009-l at Z = 1 (_double_affine_core)
-template <class E>
-__device__ __forceinline__ Pt<E> double_affine_core(const E& x, const E& y) {
-  E a = fsqr(x);
-  E b = fsqr(y);
-  E c = fsqr(b);
-  E d = fdbl(fsub(fsqr(fadd(x, b)), fadd(a, c)));
-  E e = fadd(fdbl(a), a);
-  E f = fsqr(e);
-  Pt<E> r;
-  r.x = fsub(f, fdbl(d));
-  E c8 = fdbl(fdbl(fdbl(c)));
-  r.y = fsub(fmul(e, fsub(d, r.x)), c8);
-  r.z = fdbl(y);
-  return r;
-}
-
-// the edge-case masks shared by madd and add, in the TPU kernels' order
-template <class E>
-__device__ __forceinline__ void finish(Pt<E>& r, bool h_zero, bool r_zero,
-                                       const E& px, const E& py, const E& pz,
-                                       const E& qx, const E& qy,
-                                       const E& qz) {
-  bool p_inf = fzero(pz);
-  bool q_inf = fzero(qz);
-  bool cancel = h_zero && !r_zero && !p_inf && !q_inf;
-  E one, zero;
-  bn254::fone(one);
-  bn254::fzero_set(zero);
-  r.x = fsel(cancel, one, r.x);
-  r.y = fsel(cancel, one, r.y);
-  r.z = fsel(cancel, zero, r.z);
-  r.x = fsel(q_inf, px, r.x);
-  r.y = fsel(q_inf, py, r.y);
-  r.z = fsel(q_inf, pz, r.z);
-  r.x = fsel(p_inf, qx, r.x);
-  r.y = fsel(p_inf, qy, r.y);
-  r.z = fsel(p_inf, qz, r.z);
-}
-
-// madd-2007-bl (_madd_core); Q.z must be 0 or the Montgomery one
-template <class E>
-__device__ __forceinline__ Pt<E> madd_core(const E& px, const E& py,
-                                           const E& pz, const E& qx,
-                                           const E& qy, const E& qz) {
-  E z1z1 = fsqr(pz);
-  E u2 = fmul(qx, z1z1);
-  E s2 = fmul(fmul(qy, pz), z1z1);
-  E h = fsub(u2, px);
-  E hh = fsqr(h);
-  E i = fdbl(fdbl(hh));
-  E j = fmul(h, i);
-  E rsub = fsub(s2, py);
-  E rr = fdbl(rsub);
-  E v = fmul(px, i);
-  Pt<E> r;
-  r.x = fsub(fsub(fsqr(rr), j), fdbl(v));
-  r.y = fsub(fmul(rr, fsub(v, r.x)), fdbl(fmul(py, j)));
-  r.z = fmul(fdbl(pz), h);
-  bool h_zero = fzero(h);
-  bool r_zero = fzero(rsub);
-  if (h_zero && r_zero && !fzero(pz) && !fzero(qz))
-    r = double_affine_core(qx, qy);
-  finish(r, h_zero, r_zero, px, py, pz, qx, qy, qz);
-  return r;
-}
-
-// add-2007-bl (_add_core)
-template <class E>
-__device__ __forceinline__ Pt<E> add_core(const E& px, const E& py,
-                                          const E& pz, const E& qx,
-                                          const E& qy, const E& qz) {
-  E z1z1 = fsqr(pz);
-  E z2z2 = fsqr(qz);
-  E u1 = fmul(px, z2z2);
-  E u2 = fmul(qx, z1z1);
-  E s1 = fmul(fmul(py, qz), z2z2);
-  E s2 = fmul(fmul(qy, pz), z1z1);
-  E h = fsub(u2, u1);
-  E i = fsqr(fdbl(h));
-  E j = fmul(h, i);
-  E rsub = fsub(s2, s1);
-  E rr = fdbl(rsub);
-  E v = fmul(u1, i);
-  Pt<E> r;
-  r.x = fsub(fsub(fsqr(rr), j), fdbl(v));
-  r.y = fsub(fmul(rr, fsub(v, r.x)), fdbl(fmul(s1, j)));
-  r.z = fmul(fsub(fsqr(fadd(pz, qz)), fadd(z1z1, z2z2)), h);
-  bool h_zero = fzero(h);
-  bool r_zero = fzero(rsub);
-  if (h_zero && r_zero && !fzero(pz) && !fzero(qz))
-    r = double_core(px, py, pz);
-  finish(r, h_zero, r_zero, px, py, pz, qx, qy, qz);
-  return r;
-}
+constexpr int kThreads = 128;
 
 template <class E, bool MIXED>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
     binary_kernel(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
                   const uint32_t* qx, const uint32_t* qy, const uint32_t* qz,
                   uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
-  E ax = bn254::load_elem<E>(px, i), ay = bn254::load_elem<E>(py, i),
-    az = bn254::load_elem<E>(pz, i);
-  E bx = bn254::load_elem<E>(qx, i), by = bn254::load_elem<E>(qy, i),
-    bz = bn254::load_elem<E>(qz, i);
+  Pt<E> a = bn254::load_pt<E>(px, py, pz, i);
+  Pt<E> b = bn254::load_pt<E>(qx, qy, qz, i);
   Pt<E> r;
   if constexpr (MIXED)
-    r = madd_core(ax, ay, az, bx, by, bz);
+    r = bn254::madd_core(a.x, a.y, a.z, b.x, b.y, b.z);
   else
-    r = add_core(ax, ay, az, bx, by, bz);
-  bn254::store_elem(ox, i, r.x);
-  bn254::store_elem(oy, i, r.y);
-  bn254::store_elem(oz, i, r.z);
+    r = bn254::add_core(a.x, a.y, a.z, b.x, b.y, b.z, [&] {
+      return bn254::load_pt_again<E>(px, py, pz, i);
+    });
+  bn254::store_pt(ox, oy, oz, i, r);
 }
 
 template <class E>
-__global__ void __launch_bounds__(128)
-    double_kernel(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
-                  uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n) {
+__global__ void __launch_bounds__(kThreads)
+    double_n_kernel(const uint32_t* px, const uint32_t* py,
+                    const uint32_t* pz, uint32_t* ox, uint32_t* oy,
+                    uint32_t* oz, long long n, int k) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
-  E ax = bn254::load_elem<E>(px, i), ay = bn254::load_elem<E>(py, i),
-    az = bn254::load_elem<E>(pz, i);
-  Pt<E> r = double_core(ax, ay, az);
-  bn254::store_elem(ox, i, r.x);
-  bn254::store_elem(oy, i, r.y);
-  bn254::store_elem(oz, i, r.z);
+  Pt<E> a = bn254::load_pt<E>(px, py, pz, i);
+  for (int t = 0; t < k; t++) a = bn254::double_core(a.x, a.y, a.z);
+  bn254::store_pt(ox, oy, oz, i, a);
 }
-
-constexpr int kThreads = 128;
 
 inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
+
+const uint32_t* in(const void* p) { return static_cast<const uint32_t*>(p); }
+uint32_t* out(void* p) { return static_cast<uint32_t*>(p); }
 
 template <bool MIXED>
 int launch_binary(int g2, const void* px, const void* py, const void* pz,
@@ -220,14 +90,14 @@ int launch_binary(int g2, const void* px, const void* py, const void* pz,
                   void* oy, void* oz, long long n, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  auto c = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  auto m = [](void* p) { return static_cast<uint32_t*>(p); };
   if (g2)
     binary_kernel<Fe2, MIXED><<<blocks_for(n), kThreads, 0, s>>>(
-        c(px), c(py), c(pz), c(qx), c(qy), c(qz), m(ox), m(oy), m(oz), n);
+        in(px), in(py), in(pz), in(qx), in(qy), in(qz), out(ox), out(oy),
+        out(oz), n);
   else
     binary_kernel<Fe, MIXED><<<blocks_for(n), kThreads, 0, s>>>(
-        c(px), c(py), c(pz), c(qx), c(qy), c(qz), m(ox), m(oy), m(oz), n);
+        in(px), in(py), in(pz), in(qx), in(qy), in(qz), out(ox), out(oy),
+        out(oz), n);
   return (int)cudaGetLastError();
 }
 
@@ -249,18 +119,23 @@ extern "C" int zk_point_add(int g2, const void* px, const void* py,
                               stream);
 }
 
+// k doublings of each of the n points (k = 0 copies them)
+extern "C" int zk_point_double_n(int g2, const void* px, const void* py,
+                                 const void* pz, void* ox, void* oy, void* oz,
+                                 long long n, int k, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (g2)
+    double_n_kernel<Fe2><<<blocks_for(n), kThreads, 0, s>>>(
+        in(px), in(py), in(pz), out(ox), out(oy), out(oz), n, k);
+  else
+    double_n_kernel<Fe><<<blocks_for(n), kThreads, 0, s>>>(
+        in(px), in(py), in(pz), out(ox), out(oy), out(oz), n, k);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int zk_point_double(int g2, const void* px, const void* py,
                                const void* pz, void* ox, void* oy, void* oz,
                                long long n, void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  auto c = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  auto m = [](void* p) { return static_cast<uint32_t*>(p); };
-  if (g2)
-    double_kernel<Fe2><<<blocks_for(n), kThreads, 0, s>>>(
-        c(px), c(py), c(pz), m(ox), m(oy), m(oz), n);
-  else
-    double_kernel<Fe><<<blocks_for(n), kThreads, 0, s>>>(
-        c(px), c(py), c(pz), m(ox), m(oy), m(oz), n);
-  return (int)cudaGetLastError();
+  return zk_point_double_n(g2, px, py, pz, ox, oy, oz, n, 1, stream);
 }

@@ -357,7 +357,7 @@ def _pad_msm(ops, pts: JPoint, scalars: torch.Tensor, n: int):
 def _prove_core(domain, n_input: int, window_bits: int, ells, crs_arrays,
                 weights_mont):
     """Quotient, then the four G1 MSMs (padded to one common size, as in
-    the JAX package) and the G2 MSM."""
+    the JAX package; their Horner tails in one launch) and the G2 MSM."""
     xi_g1, xi_t_g1, sum_delta_g1, xi_g2 = crs_arrays
     n = domain.n
     u_std, v_std, h_std, wit_std = _witness_quotient(
@@ -368,11 +368,10 @@ def _prove_core(domain, n_input: int, window_bits: int, ells, crs_arrays,
     _, v_p = _pad_msm(FQ_OPS, xi_g1, v_std, m)
     hp, hs = _pad_msm(FQ_OPS, xi_t_g1, h_std[:n - 1], m)
     dp, ds = _pad_msm(FQ_OPS, sum_delta_g1, wit_std, m)
-    # affine=True: DeviceCRS point sets have Z in {0, one}
-    a_g1 = msmod.msm_windowed(FQ_OPS, xi_p, u_p, wb, True)
-    b_g1 = msmod.msm_windowed(FQ_OPS, xi_p, v_p, wb, True)
-    h_xt = msmod.msm_windowed(FQ_OPS, hp, hs, wb, True)
-    c_delta = msmod.msm_windowed(FQ_OPS, dp, ds, wb, True)
+    # affine=True: DeviceCRS point sets have Z in {0, one}; the four G1
+    # MSMs share one Horner launch
+    a_g1, b_g1, h_xt, c_delta = msmod.msm_windowed_batch(
+        FQ_OPS, [(xi_p, u_p), (xi_p, v_p), (hp, hs), (dp, ds)], wb, True)
     b_g2 = msmod.msm_windowed(FQ2_OPS, xi_g2, v_std, wb, True)
     return a_g1, b_g1, b_g2, h_xt, c_delta
 

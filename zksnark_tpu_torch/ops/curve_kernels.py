@@ -1,6 +1,6 @@
 """K2-K4: complete Jacobian point operations on G1 and G2 — the CUDA
-kernels (`csrc/point_ops.cu`), their plain PyTorch versions, and the
-launch counts.
+kernels (`csrc/point_ops.cu`, `csrc/point_scan.cu`), their plain PyTorch
+versions, and the launch counts.
 
 Counterpart of `zksnark_tpu/ops/curve_pallas.py` (`jac_madd`, `jac_add`,
 `jac_double` over `_madd_core`, `_add_core`, `_double_core`).  The plain
@@ -11,22 +11,36 @@ same raw Jacobian coordinates.  (The doubling for P = Q is computed only
 when some finite pair needs it, in the plain versions and the kernels
 alike: the later selects override it everywhere else.)
 
-`madd` / `add` / `double` broadcast the two points' batch shapes, flatten
-them, and launch one thread per point on CUDA tensors; on CPU tensors they
-run the plain versions.  `out=` lets a caller have the kernel write into
-preallocated contiguous coordinate tensors (the MSM scans collect their
-prefixes that way).
+Elementwise: `madd` / `add` / `double` broadcast the two points' batch
+shapes, flatten them, and launch one thread per point.  `out=` lets a
+caller have the kernel write into preallocated contiguous coordinate
+tensors.
+
+Chains, one launch each where the JAX package runs a `lax.scan` or
+`fori_loop` of kernel launches (`zksnark_tpu/ops/msm.py`):
+- `add_scan`: the running sums of a (B, c, ...) grid along its c axis
+  (`_scan_chunks` with the add combine), with every prefix if asked;
+- `double_n`: k doublings (`_double_n`);
+- `horner`: the window sums' Horner tail (`horner_body`).
+Their plain versions are the loops of the elementwise plain versions.
+
+Every entry runs its kernel on CUDA tensors (raising if it does not build
+or launch) and its plain version on CPU tensors.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import _build
+from ..curve import jacobian as jac
 from ..curve.jacobian import JPoint
 
-# launches of each kernel; reset and read by chip_smoke.py
-LAUNCHES = {f"{op}_{g}": 0 for op in ("madd", "add", "double")
+# launches of each kernel entry; reset and read by chip_smoke.py
+LAUNCHES = {f"{op}_{g}": 0 for op in ("madd", "add", "double", "add_scan",
+                                      "double_n", "horner")
             for g in ("g1", "g2")}
 
 
@@ -166,9 +180,46 @@ def double_plain(ops, p: JPoint) -> JPoint:
     return JPoint(*_double_core(ops, *p))
 
 
+def add_scan_plain(ops, grid: JPoint, collect: bool):
+    """Running sums along axis 1 of a (B, c, *rest) point grid, one add
+    per step with every lane side by side.  Returns (totals (B, *rest),
+    every inclusive prefix (B, c, *rest) or None)."""
+    b, c = grid.z.shape[:2]
+    rest = grid.z.shape[2:grid.z.dim() - ops.elem_ndim]
+    acc = jac.infinity(ops, (b,) + rest, grid.z.device)
+    within = JPoint(*(torch.empty_like(a) for a in grid)) if collect else None
+    for j in range(c):
+        acc = add_plain(ops, acc, JPoint(*(a[:, j] for a in grid)))
+        if collect:
+            for w, a in zip(within, acc):
+                w[:, j] = a
+    return acc, within
+
+
+def double_n_plain(ops, p: JPoint, k: int) -> JPoint:
+    for _ in range(k):
+        p = double_plain(ops, p)
+    return p
+
+
+def horner_plain(ops, sums: JPoint, c: int) -> JPoint:
+    """sum_w 2^(c w) sums[w] over axis 0, MSB window first:
+    acc = 2^c acc + sums[w]."""
+    acc = jac.infinity(ops, sums.z.shape[1:sums.z.dim() - ops.elem_ndim],
+                       sums.z.device)
+    for w in range(sums.z.shape[0] - 1, -1, -1):
+        acc = double_n_plain(ops, acc, c)
+        acc = add_plain(ops, acc, JPoint(*(a[w] for a in sums)))
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
+
+def _elem(ops):
+    return (8,) if ops.elem_ndim == 1 else (2, 8)
+
 
 def _flat(c: torch.Tensor, elem) -> torch.Tensor:
     if c.dtype != torch.int32 or tuple(c.shape[c.dim() - len(elem):]) != elem:
@@ -180,36 +231,89 @@ def _flat(c: torch.Tensor, elem) -> torch.Tensor:
     return c
 
 
+def _new(batch, elem, dev) -> JPoint:
+    return JPoint(*(torch.empty(tuple(batch) + elem, dtype=torch.int32,
+                                device=dev) for _ in range(3)))
+
+
+def _ptrs(p) -> list:
+    return [None] * 3 if p is None else [c.data_ptr() for c in p]
+
+
+def _call(src: str, op: str, ops, dev, *args) -> None:
+    """Launch entry zk_point_<op> of `src` on `dev`'s current stream and
+    count it.  args: the pointers and sizes after the g2 flag."""
+    g2 = int(ops.elem_ndim == 2)
+    fn = getattr(_build.lib(src), f"zk_point_{op}")
+    code = fn(g2, *args, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, f"point {op}")
+    LAUNCHES[f"{op}_{'g2' if g2 else 'g1'}"] += 1
+
+
 def _launch(op: str, ops, pts, out):
     pts, batch = _broadcast(ops, *pts)
-    elem = (8,) if ops.elem_ndim == 1 else (2, 8)
+    elem = _elem(ops)
     ins = [_flat(c, elem) for p in pts for c in p]
     n = ins[0].shape[0]
     if out is None:
-        out = JPoint(*(torch.empty(batch + elem, dtype=torch.int32,
-                                   device=ins[0].device) for _ in range(3)))
+        out = _new(batch, elem, ins[0].device)
     for o in out:
         if (o.shape != batch + elem or not o.is_contiguous()
                 or o.data_ptr() % 16):
             raise ValueError("out= must be contiguous, aligned, of the "
                              "broadcast shape")
     if n:
-        g2 = int(ops.elem_ndim == 2)
-        fn = getattr(_build.lib("point_ops.cu"), f"zk_point_{op}")
-        code = fn(g2, *(t.data_ptr() for t in ins),
-                  *(o.data_ptr() for o in out), n,
-                  torch.cuda.current_stream(ins[0].device).cuda_stream)
-        _build.check(code, f"point {op}")
-        LAUNCHES[f"{op}_{'g2' if g2 else 'g1'}"] += 1
+        _call("point_ops.cu", op, ops, ins[0].device, *_ptrs(ins[:3]),
+              *_ptrs(ins[3:]), *_ptrs(out), n)
     return JPoint(*out)
 
 
+def _add_scan_cuda(ops, grid: JPoint, collect: bool):
+    elem = _elem(ops)
+    batch = grid.z.shape[:grid.z.dim() - ops.elem_ndim]
+    b, c, rest = batch[0], batch[1], batch[2:]
+    dev = grid.z.device
+    ins = [_flat(a, elem) for a in grid]
+    totals = _new((b,) + rest, elem, dev)
+    within = _new(batch, elem, dev) if collect else None
+    if b * math.prod(rest):
+        _call("point_scan.cu", "add_scan", ops, dev, *_ptrs(ins),
+              *_ptrs(totals), *_ptrs(within), b, c, math.prod(rest),
+              int(collect))
+    return totals, within
+
+
+def _double_n_cuda(ops, p: JPoint, k: int) -> JPoint:
+    elem = _elem(ops)
+    ins = [_flat(a, elem) for a in p]
+    out = _new(p.z.shape[:p.z.dim() - ops.elem_ndim], elem, p.z.device)
+    if ins[0].shape[0]:
+        _call("point_ops.cu", "double_n", ops, p.z.device, *_ptrs(ins),
+              *_ptrs(out), ins[0].shape[0], k)
+    return out
+
+
+def _horner_cuda(ops, sums: JPoint, c: int) -> JPoint:
+    elem = _elem(ops)
+    batch = sums.z.shape[:sums.z.dim() - ops.elem_ndim]
+    ins = [_flat(a, elem) for a in sums]
+    out = _new(batch[1:], elem, sums.z.device)
+    if math.prod(batch[1:]):
+        _call("point_scan.cu", "horner", ops, sums.z.device, *_ptrs(ins),
+              *_ptrs(out), math.prod(batch[1:]), batch[0], c)
+    return out
+
+
+def _device(p: JPoint, op: str) -> str:
+    dev = p.z.device.type
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"point {op}: unsupported device {p.z.device}")
+    return dev
+
+
 def _route(op, plain, ops, pts, out):
-    dev = pts[0].z.device
-    if dev.type == "cuda":
+    if _device(pts[0], op) == "cuda":
         return _launch(op, ops, pts, out)
-    if dev.type != "cpu":
-        raise ValueError(f"point {op}: unsupported device {dev}")
     res = plain(ops, *pts)
     if out is None:
         return res
@@ -229,3 +333,29 @@ def add(ops, p: JPoint, q: JPoint, out=None) -> JPoint:
 
 def double(ops, p: JPoint, out=None) -> JPoint:
     return _route("double", double_plain, ops, (p,), out)
+
+
+def add_scan(ops, grid: JPoint, collect: bool = False):
+    """Running sums along axis 1 of a (B, c, *rest) grid (see
+    `add_scan_plain`); one launch on CUDA tensors."""
+    if _device(grid, "add_scan") == "cuda":
+        return _add_scan_cuda(ops, grid, collect)
+    return add_scan_plain(ops, grid, collect)
+
+
+def double_n(ops, p: JPoint, k: int) -> JPoint:
+    """2^k P for every point: k doublings, one launch on CUDA tensors."""
+    if k < 0:
+        raise ValueError(f"double_n: k = {k} < 0")
+    if _device(p, "double_n") == "cuda":
+        return _double_n_cuda(ops, p, k)
+    return double_n_plain(ops, p, k)
+
+
+def horner(ops, sums: JPoint, c: int) -> JPoint:
+    """sum_w 2^(c w) sums[w] over axis 0 of (W, *batch) window sums, in
+    the order of the JAX package's horner_body; one launch on CUDA
+    tensors."""
+    if _device(sums, "horner") == "cuda":
+        return _horner_cuda(ops, sums, c)
+    return horner_plain(ops, sums, c)

@@ -8,6 +8,8 @@ Counterpart of `zksnark_tpu/ops/msm.py`, in the same formulation:
   the points are laid out as (64, chunks) and a loop walks the 64
   positions with every chunk of every window side by side, one point
   kernel launch per step (`madd` when the points are affine-or-infinity);
+  the chunk carries and the tree sum are add scans, one launch each
+  (`curve_kernels.add_scan`);
 - the weighted bucket reduction is Abel summation,
       sum_j j*B_j = 2^c * E_top - sum_j E_j,
   with E_j the prefix at the end of the last non-empty bucket <= j —
@@ -16,9 +18,9 @@ Counterpart of `zksnark_tpu/ops/msm.py`, in the same formulation:
 - the windows are then combined by Horner, MSB window first.
 
 The JAX package maps the per-window procedure over windows with `vmap`;
-here the window is a batch axis of every tensor.  The Horner and Abel
-doubling chains are batch-1 (and batch-W) kernel launches: ~c*W + W
-sequential launches per MSM, left as they are for now.
+here the window is a batch axis of every tensor.  The Abel doubling chain
+and the Horner tail are one launch each (`curve_kernels.double_n`,
+`curve_kernels.horner`).
 
 Scalars are standard-form (N, 8) int32 limbs; points are `JPoint` batches.
 """
@@ -30,6 +32,7 @@ import torch
 from ..curve import jacobian as jac
 from ..curve.jacobian import JPoint
 from ..field import params
+from . import curve_kernels as ck
 
 L = params.NUM_LIMBS
 _CHUNK = 64
@@ -47,7 +50,7 @@ def _batch_shape(ops, p: JPoint):
     return p.z.shape[:p.z.dim() - ops.elem_ndim]
 
 
-def _hs_scan(ops, pts: JPoint, combine) -> JPoint:
+def _hs_scan(ops, pts: JPoint) -> JPoint:
     """Inclusive Hillis-Steele prefix scan along axis 0 (identity =
     infinity); only for small sizes."""
     size = pts.z.shape[0]
@@ -58,7 +61,7 @@ def _hs_scan(ops, pts: JPoint, combine) -> JPoint:
         shift = 1 << i
         inf = jac.infinity(ops, (min(shift, size),) + rest, pts.z.device)
         partner = _cat(inf, _index(pts, slice(0, size - shift)))
-        pts = combine(partner, pts)
+        pts = jac.add(ops, partner, pts)
     return pts
 
 
@@ -70,52 +73,40 @@ def _pad_to(ops, pts: JPoint, m: int) -> JPoint:
     return _cat(pts, jac.infinity(ops, (m - n,) + rest, pts.z.device))
 
 
-def _scan_chunks(ops, pts: JPoint, combine, c: int, collect: bool):
-    """Lay axis 0 out as (B, c) and walk the c sequential positions with
-    all B chunks (and any further batch axes) side by side.  Returns
-    (totals (B, ...), within (c, B, ...) or None)."""
+def _scan_chunks(ops, pts: JPoint, c: int, collect: bool):
+    """Lay axis 0 out as (B, c) in place and scan the c sequential
+    positions with all B chunks (and any further batch axes) side by side,
+    in one add-scan launch.  Returns (totals (B, ...), within (B, c, ...)
+    or None)."""
     n = pts.z.shape[0]
     b = -(-n // c)
     pts = _pad_to(ops, pts, b * c)
-    grid = JPoint(*(a.reshape((b, c) + a.shape[1:]).transpose(0, 1)
-                    .contiguous() for a in pts))               # (c, B, ...)
-    acc = jac.infinity(ops, _batch_shape(ops, grid)[1:], pts.z.device)
-    within = None
-    if collect:
-        within = JPoint(*(torch.empty_like(a) for a in grid))
-    for j in range(c):
-        out = _index(within, j) if collect else None
-        acc = combine(acc, _index(grid, j), out=out)
-    return acc, within
+    grid = JPoint(*(a.reshape((b, c) + a.shape[1:]) for a in pts))
+    return ck.add_scan(ops, grid, collect)
 
 
-def _prefix_scan(ops, pts: JPoint, combine=None) -> JPoint:
-    """Work-efficient inclusive prefix scan over axis 0 (~2N combines);
-    combine=None means the complete add."""
-    comb = (lambda p, q, out=None: jac.add(ops, p, q, out)) \
-        if combine is None else combine
+def _prefix_scan(ops, pts: JPoint) -> JPoint:
+    """Work-efficient inclusive prefix scan over axis 0 (~2N adds)."""
     n = pts.z.shape[0]
     if n <= 2 * _CHUNK:
-        return _hs_scan(ops, pts, comb)
-    totals, within = _scan_chunks(ops, pts, comb, _CHUNK, collect=True)
+        return _hs_scan(ops, pts)
+    totals, within = _scan_chunks(ops, pts, _CHUNK, collect=True)
     b = totals.z.shape[0]
     rest = _batch_shape(ops, totals)[1:]
     shifted = _cat(jac.infinity(ops, (1,) + rest, pts.z.device),
                    _index(totals, slice(0, b - 1)))
-    carry = _prefix_scan(ops, shifted, comb)                  # (B, ...)
-    full = comb(JPoint(*(a.unsqueeze(0) for a in carry)), within)
-    full = JPoint(*(a.transpose(0, 1).reshape((b * _CHUNK,) + a.shape[2:])
-                    for a in full))
+    carry = _prefix_scan(ops, shifted)                         # (B, ...)
+    full = jac.add(ops, JPoint(*(a.unsqueeze(1) for a in carry)), within)
+    full = JPoint(*(a.reshape((b * _CHUNK,) + a.shape[2:]) for a in full))
     return _index(full, slice(0, n))
 
 
 def tree_sum(ops, pts: JPoint) -> JPoint:
     """Total of a batch of points over axis 0: repeated chunked scan-sums
-    (work N, one add per step)."""
-    comb = (lambda p, q, out=None: jac.add(ops, p, q, out))
+    (work N, one add-scan launch per level)."""
     while pts.z.shape[0] > 1:
         c = min(_CHUNK, pts.z.shape[0])
-        pts, _ = _scan_chunks(ops, pts, comb, c, collect=False)
+        pts, _ = _scan_chunks(ops, pts, c, collect=False)
     return _index(pts, 0)
 
 
@@ -129,12 +120,6 @@ def batch_scalar_mul(ops, pts: JPoint, scalar_limbs: torch.Tensor) -> JPoint:
         acc = jac.double(ops, acc)
         acc = jac.select(ops, bit, jac.add(ops, acc, pts), acc)
     return acc
-
-
-def _double_n(ops, p: JPoint, n: int) -> JPoint:
-    for _ in range(n):
-        p = jac.double(ops, p)
-    return p
 
 
 def _digit_columns(scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
@@ -244,25 +229,38 @@ def _bucket_windows_sorted(ops, pts: JPoint, order: torch.Tensor,
     # Abel: sum_j j*B_j = num_buckets * E_top - sum_j E_j.  E_top is the
     # window's point total: last chunk carry + last chunk total.
     e_top = jac.add(ops, _index(carry, b - 1), _index(totals, b - 1))
-    lhs = _double_n(ops, e_top, num_buckets.bit_length() - 1)
+    lhs = ck.double_n(ops, e_top, num_buckets.bit_length() - 1)
     rhs = tree_sum(ops, JPoint(*(a.transpose(0, 1) for a in filled)))
     return jac.add(ops, lhs, jac.neg(ops, rhs))
+
+
+def window_sums(ops, pts: JPoint, scalar_limbs: torch.Tensor,
+                window_bits: int, affine: bool = False) -> JPoint:
+    """The (W,) window sums of Pippenger over exactly these N points, LSB
+    window first: what the Horner tail combines."""
+    digit_cols = _digit_columns(scalar_limbs, window_bits)   # (W, N)
+    d_sorted, order = torch.sort(digit_cols, dim=1)
+    return _bucket_windows_sorted(
+        ops, pts, order, d_sorted, 1 << window_bits, affine)
 
 
 def msm_windowed(ops, pts: JPoint, scalar_limbs: torch.Tensor,
                  window_bits: int, affine: bool = False) -> JPoint:
     """Pippenger over exactly these N points (no padding)."""
-    digit_cols = _digit_columns(scalar_limbs, window_bits)   # (W, N)
-    d_sorted, order = torch.sort(digit_cols, dim=1)
-    window_sums = _bucket_windows_sorted(
-        ops, pts, order, d_sorted, 1 << window_bits, affine)
-    n_win = digit_cols.shape[0]
     # Horner across windows, MSB window first: acc = 2^c * acc + W_w
-    acc = jac.infinity(ops, (), pts.z.device)
-    for w in range(n_win - 1, -1, -1):
-        acc = _double_n(ops, acc, window_bits)
-        acc = jac.add(ops, acc, _index(window_sums, w))
-    return acc
+    return ck.horner(ops, window_sums(ops, pts, scalar_limbs, window_bits,
+                                      affine), window_bits)
+
+
+def msm_windowed_batch(ops, jobs, window_bits: int,
+                       affine: bool = False) -> list:
+    """`msm_windowed` of each (points, scalars) job, the jobs' Horner
+    tails side by side in one `horner` call (the window sums of each job
+    are computed one job at a time)."""
+    sums = [window_sums(ops, p, s, window_bits, affine) for p, s in jobs]
+    out = ck.horner(ops, JPoint(*(torch.stack(c, dim=1)
+                                  for c in zip(*sums))), window_bits)
+    return [_index(out, i) for i in range(len(jobs))]
 
 
 def pick_window_bits(n: int) -> int:
