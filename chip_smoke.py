@@ -9,18 +9,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 1. build: `nvcc` compiles every kernel source under
    `zksnark_tpu_torch/csrc/` (one process per source, in parallel).
 2. kernels: each kernel entry — K1 montmul (Fr, Fq); K2 madd, K3 add,
-   K4 double (G1, G2); and the MSM's chains K3 add_scan, K4 double_n and
-   horner (G1, G2) — runs on 2^16 random inputs plus the edge cases (0,
-   1, p-1; P = Q, P = -Q, P = inf, Q = inf, a malformed Z; for the chains
-   a step at infinity, a step equal to the accumulator, a step equal to
-   its negation, a lane all at infinity, k = 0 and 1, window sums at
-   infinity) and must equal its plain PyTorch version on the same CUDA
-   inputs bit for bit; the edge cases built from real curve points must
-   also equal the host curve arithmetic.  Each entry and its plain
-   version then run on the same random CUDA inputs at the shapes the
-   main path gives it: the two outputs must again be equal bit for bit,
-   and both are timed with CUDA events, the chains also beside the loop
-   of elementwise launches that each replaces.
+   K4 double (G1, G2); the MSM's chains K2 bucket_scan, K3 add_scan, K4
+   double_n and horner (G1, G2); and the NTT passes — runs on 2^16
+   random inputs plus the edge cases (0, 1, p-1; P = Q, P = -Q, P = inf,
+   Q = inf, a malformed Z; for the chains a step at infinity, a step
+   equal to the accumulator, a step equal to its negation, a lane all at
+   infinity, k = 0 and 1, window sums at infinity; for the bucket scan a
+   bucket whose points cancel, a bucket of equal points, infinity table
+   entries, empty buckets, runs across chunks and an n that is not a
+   multiple of 64, mixed and general adds; for the NTT every log_n from 1
+   to 20, forward and inverse, in the default passes and in an uneven
+   split) and must equal its plain PyTorch version on the same CUDA
+   inputs bit for bit; the edge cases built from real curve points (and
+   a small NTT against the host DFT) must also equal the host
+   arithmetic.  Each entry and its plain version then run on the same
+   random CUDA inputs at the shapes the main path gives it: the two
+   outputs must again be equal bit for bit, and both are timed with CUDA
+   events, the chains, the bucket scan and the NTT also beside the loop
+   of launches that each replaces.
 3. reference: a small circuit (n = 2^3) proves on the card and with the
    plain versions on the CPU; the two proofs must be equal.
 4. path: the main path at full size — the square-chain circuit with
@@ -29,7 +35,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    on its public input x and be rejected on x + 1.  The kernel launch
    counts are reset just before setup and read after it and after each
    prove; every kernel entry of the path must have launched (all but the
-   elementwise double, whose chains now run in double_n and horner).
+   elementwise double, whose chains now run in double_n and horner), and
+   each prove must launch the bucket scan once per MSM (four G1, one
+   G2), the elementwise madd not at all (setup's comb encryption still
+   runs it) and the NTT kernel once per pass of its seven transforms.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit (nvidia-smi), and {"ok": true, "device": {...}}.  Imports nothing of
@@ -70,7 +79,9 @@ OPS_PER_ADD = 16
 
 TPU_KERNELS = {
     "montmul": "zksnark_tpu/ops/montmul.py:42",
+    "ntt": "zksnark_tpu/ops/montmul.py:42",
     "madd": "zksnark_tpu/ops/curve_pallas.py:291",
+    "bucket_scan": "zksnark_tpu/ops/curve_pallas.py:291",
     "add": "zksnark_tpu/ops/curve_pallas.py:281",
     "double": "zksnark_tpu/ops/curve_pallas.py:301",
     "add_scan": "zksnark_tpu/ops/curve_pallas.py:281",
@@ -79,7 +90,9 @@ TPU_KERNELS = {
 }
 SOURCES = {
     "montmul": "zksnark_tpu_torch/csrc/montmul.cu",
+    "ntt": "zksnark_tpu_torch/csrc/ntt.cu",
     "madd": "zksnark_tpu_torch/csrc/point_ops.cu",
+    "bucket_scan": "zksnark_tpu_torch/csrc/point_scan.cu",
     "add": "zksnark_tpu_torch/csrc/point_ops.cu",
     "double": "zksnark_tpu_torch/csrc/point_ops.cu",
     "add_scan": "zksnark_tpu_torch/csrc/point_scan.cu",
@@ -421,6 +434,139 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
             f"16, max |kernel - plain| = {err}, edge MSMs vs host curve "
             f"{'ok' if sem else 'FAIL'}")
 
+        # -- the bucket scan -------------------------------------------------
+        # random tables of n_rand + 37 points (the last chunk runs past n):
+        # Z in {0, one} for the mixed add, any Z (or 0) for the add; digits
+        # over 2^16 buckets (runs of one or two) and over 16 (runs across
+        # chunks), sorted as the MSM sorts them
+        nr = n_rand + 37
+        zm = torch.from_numpy(rng.random(nr) < 1 / 16).to(dev)
+        tab_aff = jac.JPoint(rnd((nr,)), rnd((nr,)), ops.select(
+            zm, ops.zero((nr,), dev), ops.one((nr,), dev)))
+        tab_any = tab_aff._replace(z=ops.select(
+            zm, ops.zero((nr,), dev), rnd((nr,))))
+        err = 0
+        for nb, w in ((1 << 16, 2), (16, 3)):
+            d_sorted, order = torch.sort(torch.from_numpy(
+                rng.integers(0, nb, size=(w, nr))).to(dev), dim=1)
+            for aff, tab in ((True, tab_aff), (False, tab_any)):
+                args = (ops, tab, order, d_sorted, nb, 64, aff)
+                got = ck.bucket_scan(*args)
+                want = ck.bucket_scan_plain(*args)
+                torch.cuda.synchronize()
+                err = max(err, bucket_err(got, want))
+        # the edge table (229 real points, 2 windows, 16 buckets): see
+        # edge_bucket_case
+        host, tab, order, d_sorted = edge_bucket_case(
+            ops, g, pts, hadd, hneg, A, B, C, D, rng)
+        args = (ops, tab, order.to(dev), d_sorted.to(dev), 16, 64, True)
+        got = ck.bucket_scan(*args)
+        err = max(err, bucket_err(got, ck.bucket_scan_plain(*args)))
+        sem = bucket_host_ok(ops, got, host, order, d_sorted, 16, 64, hadd)
+        results[f"bucket_scan_{g}"] = {
+            "max_abs_err": err, "bit_exact": err == 0, "host_edge_ok": sem,
+            "n_checked": 4 * 5 * nr + 2 * 229}
+        log(f"[kernels] bucket_scan_{g}: tables of {nr} points, 2^16 and "
+            f"16 buckets, mixed and general adds, max |kernel - plain| = "
+            f"{err}, edge table vs host curve {'ok' if sem else 'FAIL'}")
+
+    # -- the NTT passes ------------------------------------------------------
+    from zksnark_tpu_torch.ops import ntt
+
+    err = 0
+    for log_n in range(1, NTT_LOG_N + 1):
+        d = ntt.get_domain(log_n, dev)
+        n = 1 << log_n
+        x = torch.from_numpy(FR_CTX.to_limbs_np(np.concatenate(
+            [[0, 1, FR_CTX.p - 1, FR_CTX.r_int],
+             rand_field(rng, FR_CTX.p, (min(n, n_rand),))])[:n])).to(dev)
+        x = x.repeat(-(-n // x.shape[0]), 1)[:n].contiguous()
+        uneven = (1,) + ntt.pass_widths(log_n - 1) if log_n > 1 else (1,)
+        for tw in (d.t.tw_table, d.t.tw_table_inv):
+            for widths in (d.widths, uneven):
+                got = ntt.butterflies(FR_CTX, log_n, tw, x, widths)
+                want = ntt.butterflies_plain(FR_CTX, log_n, tw, x, widths)
+                torch.cuda.synchronize()
+                err = max(err, limb_err(got, want))
+    d = ntt.get_domain(5, dev)
+    vals = [hrng.randrange(FR_CTX.p) for _ in range(29)] + [
+        0, 1, FR_CTX.p - 1]
+    got = FR_CTX.from_mont_np(ntt.ntt(d, torch.from_numpy(
+        FR_CTX.to_mont_np(vals)).to(dev)).cpu().numpy())
+    sem = [int(v) for v in got] == [
+        sum(v * pow(d.omega, i * j, FR_CTX.p) for j, v in enumerate(vals))
+        % FR_CTX.p for i in range(32)]
+    results["ntt_fr"] = {"max_abs_err": err, "bit_exact": err == 0,
+                         "host_edge_ok": sem,
+                         "n_checked": 4 * (2 ** (NTT_LOG_N + 1) - 2)}
+    log(f"[kernels] ntt_fr: log_n 1..{NTT_LOG_N}, forward and inverse, "
+        f"default and uneven passes, max |kernel - plain| = {err}; 2^5 vs "
+        f"host DFT {'ok' if sem else 'FAIL'}")
+
+
+def bucket_err(got, want) -> int:
+    """Largest difference between two bucket scans' outputs (slots,
+    bucket_chunk, valid, totals)."""
+    (gs, gc, gv, gt), (ws, wc, wv, wt) = got, want
+    errs = [limb_err(a, b) for a, b in zip(list(gs) + list(gt),
+                                             list(ws) + list(wt))]
+    errs.append(int((gc - wc).abs().max().item()))
+    errs.append(int((gv != wv).sum().item()))
+    return max(errs)
+
+
+def edge_bucket_case(ops, g, pts, hadd, hneg, A, B, C, D, rng):
+    """229 real points (host list, None at infinity) and two windows of
+    16-bucket digits: window 0 opens with (A, -A) in bucket 0 (madd's
+    cancel branch) and (B, B, B) in bucket 1 (its doubling branch), leaves
+    buckets 3, 8 and 14 empty; window 1 puts all but five points in bucket
+    15.  Rows 5 and 6 are infinity, row 6 with C's X and Y.  Returns
+    (host, table, order, d_sorted), the last two on the CPU."""
+    n = 229
+    host = [A, hneg(A), B, B, B, None, None]
+    cur = D
+    while len(host) < n:
+        host.append(cur)
+        cur = hadd(cur, C)
+    tab = pts(host)
+    xy = pts([C])
+    tab.x[6], tab.y[6] = xy.x[0], xy.y[0]
+    d = np.empty((2, n), dtype=np.int64)
+    d[0] = rng.choice(np.setdiff1d(np.arange(2, 16), [3, 8, 14]), size=n)
+    d[0, :2], d[0, 2:5] = 0, 1
+    d[1] = 15
+    d[1, rng.choice(n, size=5, replace=False)] = rng.integers(0, 16, 5)
+    d_sorted, order = torch.sort(torch.from_numpy(d), dim=1, stable=True)
+    return host, tab, order, d_sorted
+
+
+def bucket_host_ok(ops, got, host, order, d_sorted, nb, c, hadd) -> bool:
+    """The bucket scan's outputs against the host curve: slot (w, d) is
+    its chunk's running sum at the end of digit d's run, bucket_chunk
+    that chunk, valid whether d occurs; totals each chunk's sum."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+
+    slots, chunk, valid, totals = got
+    W, n = order.shape
+    b = -(-n // c)
+    ok = True
+    for w in range(W):
+        want = [None] * nb
+        want_c, want_v = [0] * nb, [False] * nb
+        for k in range(b):
+            acc = None
+            for pos in range(k * c, min(n, k * c + c)):
+                acc = hadd(acc, host[int(order[w, pos])])
+                dig = int(d_sorted[w, pos])
+                if pos == n - 1 or dig != int(d_sorted[w, pos + 1]):
+                    want[dig], want_c[dig], want_v[dig] = acc, k, True
+            ok &= jac.to_affine_np(ops, jac.JPoint(
+                *(a[k, w] for a in totals))) == acc
+        ok &= list(jac.to_affine_np(ops, jac.JPoint(
+            *(a[w] for a in slots)))) == want
+        ok &= chunk[w].tolist() == want_c and valid[w].tolist() == want_v
+    return bool(ok)
+
 
 def time_phase(dev, seed: int, results: dict) -> None:
     """Each kernel and its plain version at the main path's shapes: both
@@ -520,15 +666,19 @@ def time_phase(dev, seed: int, results: dict) -> None:
         chain_timing(ops, g, lambda n: jac.JPoint(
             rnd(n, FQ_CTX, elem), rnd(n, FQ_CTX, elem),
             rnd(n, FQ_CTX, elem)), results)
+        bucket_timing(ops, g, lambda n: rnd(n, FQ_CTX, elem), gen, results)
+    ntt_timing(rnd(1 << NTT_LOG_N, FR_CTX), results)
 
 
-# shapes: montmul_fr at an NTT stage of n = 2^20 (n/2 products);
-# montmul_fq at a batch_normalize prefix-product step (2^20 / 64); madd at
-# an MSM scan step (16 windows x 2^14 chunks); add at the MSM bucket ends
-# (16 windows x 2^16 buckets); double at the former Abel step (one point
-# per window)
-PATH_SHAPES = {"montmul_fr": 1 << 19, "montmul_fq": 1 << 14,
-               "madd": 1 << 18, "add": 1 << 20, "double": 16}
+# shapes: montmul_fr at the prove's elementwise products (n^-1, coset,
+# vanishing, from_mont: 2^20; the NTT stages' 2^19 now run inside the NTT
+# kernel); montmul_fq at a batch_normalize prefix-product step (2^20 /
+# 64); madd at setup's comb encryption (2^20 scalars, one madd per 8-bit
+# digit; the MSM's scan steps now run inside the bucket scan); add at the
+# MSM bucket ends (16 windows x 2^16 buckets); double at the former Abel
+# step (one point per window)
+PATH_SHAPES = {"montmul_fr": 1 << 20, "montmul_fq": 1 << 14,
+               "madd": 1 << 20, "add": 1 << 20, "double": 16}
 # the elementwise add's shapes in one 2^20 MSM (c = 16): bucket ends,
 # the two chunk-carry fix-ups, the small Hillis-Steele rounds, E_top and
 # the Abel subtraction (2^20, 2^18, 4096, 64 twice, 16 twice)
@@ -560,6 +710,151 @@ def loop_add_scan(ops, grid, collect):
         out = jac.JPoint(*(a[j] for a in within)) if collect else None
         acc = ck.add(ops, acc, jac.JPoint(*(a[j] for a in g)), out=out)
     return acc, within
+
+
+# the bucket scan at one 2^20 MSM's shape: W windows of c-bit digits
+BUCKET_SHAPE = {"windows": 16, "c": 16, "n": 1 << 20}
+NTT_LOG_N = 20                   # the prove's transforms; checked 1 .. 20
+
+
+def loop_bucket_scan(ops, pts, order, d_sorted, num_buckets, affine):
+    """What bucket_scan replaced (`ops/msm.py` before it): the sorted
+    points gathered into a (64, B, W) grid, one elementwise madd (or add)
+    launch per step writing its prefix into `within`, the permute of
+    `within` to (W, N), and the scatter of the run ends into bucket slots
+    by index_copy and index_fill.  Returns what bucket_scan returns."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import msm
+
+    W, n = order.shape
+    dev = pts.z.device
+    elem = pts.x.shape[1:]
+    comb = jac.madd if affine else jac.add
+    cdim = min(64, n)
+    b = -(-n // cdim)
+    pts_ext = msm._pad_to(ops, pts, n + 1)
+    idx = torch.cat([order, order.new_full((W, b * cdim - n), n)], dim=1)
+    idx = idx.reshape(W, b, cdim).permute(2, 1, 0).contiguous()
+    grid = msm._index(pts_ext, idx)                           # (cdim, B, W)
+    within = jac.JPoint(*(torch.empty_like(a) for a in grid))
+    acc = jac.infinity(ops, (b, W), dev)
+    for j in range(cdim):
+        acc = comb(ops, acc, msm._index(grid, j),
+                   out=msm._index(within, j))
+    del grid
+    flat_w = jac.JPoint(*(a.permute(2, 1, 0, *range(3, a.dim()))
+                          .reshape((W, b * cdim) + elem)[:, :n]
+                          for a in within))
+    del within
+    nxt = torch.cat([d_sorted[:, 1:],
+                     d_sorted.new_full((W, 1), num_buckets)], dim=1)
+    tgt = torch.where(d_sorted != nxt, d_sorted,
+                      d_sorted.new_full((), num_buckets))
+    rows = (tgt + torch.arange(W, device=dev).unsqueeze(1)
+            * (num_buckets + 1)).reshape(-1)
+    inf_b = jac.infinity(ops, (W * (num_buckets + 1),), dev)
+    slots = msm._pack(inf_b, (W * (num_buckets + 1),)).index_copy(
+        0, rows, msm._pack(flat_w, (W * n,)))
+    slots = msm._unpack(
+        slots.reshape(W, num_buckets + 1, -1)[:, :num_buckets], elem)
+    pos_chunk = (torch.arange(n, device=dev) // cdim).repeat(W)
+    chunk = torch.zeros(W * (num_buckets + 1), dtype=torch.int64,
+                        device=dev).index_copy(0, rows, pos_chunk)
+    valid = torch.zeros(W * (num_buckets + 1), dtype=torch.bool,
+                        device=dev).index_fill(0, rows, True)
+    return (slots, chunk.reshape(W, -1)[:, :num_buckets],
+            valid.reshape(W, -1)[:, :num_buckets], acc)
+
+
+def loop_ntt(domain, x):
+    """What the NTT kernel replaced (`ops/ntt.py` before it): the
+    bit-reversal gather, then per stage one K1 launch for the twiddle
+    products, the plain add and subtract, and a cat."""
+    from zksnark_tpu_torch.field.limb import add, sub
+    from zksnark_tpu_torch.ops import montmul as mm
+    from zksnark_tpu_torch.ops import ntt
+
+    ctx, log_n = domain.ctx, domain.log_n
+    n = 1 << log_n
+    x = x[ntt._bitrev(log_n, x.device)]
+    for s in range(1, log_n + 1):
+        half, m = 1 << (s - 1), 1 << s
+        xb = x.reshape(n // m, m, 8)
+        u, v = xb[:, :half], xb[:, half:]
+        w = domain.t.tw_table[0:n // 2:n // m]
+        t = mm.mont_mul(ctx, w.unsqueeze(0), v)
+        x = torch.cat([add(ctx, u, t), sub(ctx, u, t)], dim=1).reshape(n, 8)
+    return x
+
+
+def bucket_timing(ops, g, rnd_elem, gen, results) -> None:
+    """The bucket scan of one 2^20 MSM (W = 16 windows of 16-bit digits,
+    sorted as the MSM sorts them, over an affine table with a point at
+    infinity 1 time in 16): the kernel, its plain version and the loop it
+    replaced, on the same inputs, timed and compared."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    W, c, n = (BUCKET_SHAPE[k] for k in ("windows", "c", "n"))
+    nb = 1 << c
+    dev = gen.device
+    zm = torch.randint(0, 16, (n,), device=dev, generator=gen) == 0
+    tab = jac.JPoint(rnd_elem(n), rnd_elem(n), ops.select(
+        zm, ops.zero((n,), dev), ops.one((n,), dev)).contiguous())
+    d_sorted, order = torch.sort(torch.randint(
+        0, nb, (W, n), device=dev, generator=gen), dim=1)
+    args = (ops, tab, order, d_sorted, nb, 64, True)
+    ms, got = time_cuda(lambda: ck.bucket_scan(*args), 5)
+    loop_ms, old = time_cuda(
+        lambda: loop_bucket_scan(ops, tab, order, d_sorted, nb, True), 2)
+    plain_ms, want = time_cuda(lambda: ck.bucket_scan_plain(*args), 1)
+    err = max(bucket_err(got, want), bucket_err(old, want))
+    del got, old, want
+    cnt = CountingOps(ops)
+    ck.madd_plain(cnt, *(jac.JPoint(*(a[i:i + 1] for a in tab))
+                         for i in (0, 1)))
+    elem_b = 32 * (1 if g == "g1" else 2)
+    b = n // 64
+    byt = (3 * elem_b * n + 2 * 8 * W * n + W * nb * (3 * elem_b + 9)
+           + 3 * elem_b * b * W)
+    bnd = bound(byt, W * n * (cnt.muls * IMAD_PER_MUL
+                              + cnt.adds * OPS_PER_ADD))
+    name = f"bucket_scan_{g}"
+    results[name].update(shape=[W, c, n], ms=ms, loop_ms=loop_ms,
+                         plain_ms=plain_ms, path_shape_err=err,
+                         checked_shapes=[[W, c, n]], **bnd)
+    log(f"[timing] {name} W={W} c={c} n={n}: kernel {ms:.4f} ms, loop of "
+        f"launches {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); max |kernel - "
+        f"plain|, |loop - plain| = {err}")
+
+
+def ntt_timing(x, results) -> None:
+    """One 2^20 transform (the prove's size): the kernel's passes, its
+    plain version and the per-stage loop it replaced, on the same input,
+    timed and compared."""
+    from zksnark_tpu_torch.field.limb import FR_CTX
+    from zksnark_tpu_torch.ops import ntt
+
+    log_n = NTT_LOG_N
+    d = ntt.get_domain(log_n, x.device)
+    tw = d.t.tw_table
+    ms, got = time_cuda(lambda: ntt.ntt(d, x), 20)
+    loop_ms, old = time_cuda(lambda: loop_ntt(d, x), 3)
+    plain_ms, want = time_cuda(lambda: ntt.butterflies_plain(
+        FR_CTX, log_n, tw, x, d.widths), 1)
+    err = max(limb_err(got, want), limb_err(old, want))
+    n = 1 << log_n
+    bnd = bound(32 * (2 * n + n // 2),
+                log_n * (n // 2) * (IMAD_PER_MUL + 2 * OPS_PER_ADD))
+    results["ntt_fr"].update(shape=[n], ms=ms, loop_ms=loop_ms,
+                             plain_ms=plain_ms, path_shape_err=err,
+                             checked_shapes=[n], widths=list(d.widths),
+                             **bnd)
+    log(f"[timing] ntt_fr n=2^{log_n} passes {d.widths}: kernel {ms:.4f} ms, "
+        f"loop of stages {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); max |kernel - "
+        f"plain|, |loop - plain| = {err}")
 
 
 def loop_double_n(ops, p, k):
@@ -686,13 +981,23 @@ def ptxas_summary(log_text: str) -> list:
     """One line per kernel from nvcc's `-Xptxas -v` output: the kernel
     (its name and template arguments read off the mangled name), its
     registers and its spills."""
+    def kernel_name(mangled):
+        # the length-prefixed identifier that ends in "kernel" (a length
+        # may follow digits of the namespace's hash: try every split)
+        for m in re.finditer(r"\d+", mangled):
+            for i in range(m.start(), m.end()):
+                size = int(mangled[i:m.end()])
+                ident = mangled[m.end():m.end() + size]
+                if len(ident) == size and ident.endswith("kernel"):
+                    return ident
+        return mangled
+
     out, name, spill = [], "?", ""
     for line in log_text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             mangled = m.group(1)
-            k = re.search(r"\d+([a-z_0-9]*kernel[a-z_0-9]*)", mangled)
-            name = k.group(1) if k else mangled
+            name = kernel_name(mangled)
             if "Fe2" in mangled:
                 name += "<Fe2"
             elif "Fe" in mangled:
@@ -720,18 +1025,20 @@ def bound(nbytes: int, nops: int) -> dict:
 # reference and path phases
 # ---------------------------------------------------------------------------
 
-def counts() -> dict:
+def _counters() -> tuple:
     from zksnark_tpu_torch.ops import curve_kernels as ck
     from zksnark_tpu_torch.ops import montmul as mm
+    from zksnark_tpu_torch.ops import ntt
 
-    return {**mm.LAUNCHES, **ck.LAUNCHES}
+    return mm.LAUNCHES, ntt.LAUNCHES, ck.LAUNCHES
+
+
+def counts() -> dict:
+    return {k: v for d in _counters() for k, v in d.items()}
 
 
 def reset_counts() -> None:
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-    from zksnark_tpu_torch.ops import montmul as mm
-
-    for d in (mm.LAUNCHES, ck.LAUNCHES):
+    for d in _counters():
         for k in d:
             d[k] = 0
 
@@ -790,17 +1097,25 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
     torch.cuda.synchronize()
     setup_s = time.time() - t0
     c_setup = counts()
-    log(f"[path] device_setup: {setup_s:.2f} s; launches {c_setup}")
+    setup_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[path] device_setup: {setup_s:.2f} s; launches {c_setup}; peak "
+        f"device memory {setup_peak:.2f} GiB")
+    # per prove: the bucket scan once per MSM, no elementwise madd, the
+    # NTT kernel once per pass of each of the seven transforms
+    expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
+              "madd_g2": 0, "ntt_fr": 7 * len(dqap.domain.widths)}
 
     be = BN254Backend()
     x = wit[1]
     per_prove = []
     prev = c_setup
     for i in range(n_proves):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         proof = prover.device_prove(dqap, crs, wit, blinding=(7 + i, 9 + i))
         torch.cuda.synchronize()
         ms = (time.time() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
         now = counts()
         launches = diff(now, prev)
         prev = now
@@ -812,20 +1127,27 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
                   if k.split("_g")[0] in ("add", "double", "add_scan",
                                           "double_n", "horner"))
         log(f"[path] prove {i}: {ms:.1f} ms; launches {launches} (K3 + K4: "
-            f"{k34}); verify [x] {ok}, [x+1] {bad} ({vs:.2f} s)")
+            f"{k34}); peak device memory {peak:.2f} GiB; verify [x] {ok}, "
+            f"[x+1] {bad} ({vs:.2f} s)")
         if not ok or bad:
             raise SystemExit(f"proof {i} failed verification "
                              f"(accept {ok}, tampered accept {bad})")
-        per_prove.append({"ms": ms, "launches": launches, "k3_k4": k34})
+        wrong = {k: launches[k] for k, v in expect.items()
+                 if launches[k] != v}
+        if wrong:
+            raise SystemExit(f"prove {i} launched {wrong}, expected "
+                             f"{ {k: expect[k] for k in wrong} }")
+        per_prove.append({"ms": ms, "launches": launches, "k3_k4": k34,
+                          "peak_gib": peak})
     total = counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max([setup_peak] + [p["peak_gib"] for p in per_prove])
     log(f"[path] launches over setup + {n_proves} proves: {total}; peak "
         f"device memory {peak:.2f} GiB")
     zero = [k for k, v in total.items() if v == 0 and k not in OFF_PATH]
     if zero:
         raise SystemExit(f"kernels never launched on the main path: {zero}")
     return {"launches": total, "setup_s": setup_s, "proves": per_prove,
-            "state": (dqap, crs, wit)}
+            "peak_gib": peak, "state": (dqap, crs, wit)}
 
 
 def profile_phase(dqap, crs, wit, table_path: str) -> None:

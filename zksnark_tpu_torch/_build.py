@@ -32,6 +32,7 @@ SOURCES = {
     "montmul.cu": ("bn254_field.cuh",),
     "point_ops.cu": ("bn254_field.cuh", "point_core.cuh"),
     "point_scan.cu": ("bn254_field.cuh", "point_core.cuh"),
+    "ntt.cu": ("bn254_field.cuh",),
 }
 
 _P = ctypes.c_void_p
@@ -47,8 +48,10 @@ SIGNATURES = {
     },
     "point_scan.cu": {
         "zk_point_add_scan": [_I] + [_P] * 9 + [_LL, _I, _LL, _I, _P],
+        "zk_point_bucket_scan": [_I, _I] + [_P] * 13 + [_I, _LL, _I, _I, _P],
         "zk_point_horner": [_I] + [_P] * 6 + [_LL, _I, _I, _P],
     },
+    "ntt.cu": {"zk_ntt_pass": [_P] * 3 + [_I] * 5 + [_P]},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

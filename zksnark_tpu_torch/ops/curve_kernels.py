@@ -18,6 +18,9 @@ tensors.
 
 Chains, one launch each where the JAX package runs a `lax.scan` or
 `fori_loop` of kernel launches (`zksnark_tpu/ops/msm.py`):
+- `bucket_scan`: the bucket scan of every window of one MSM
+  (`_bucket_window_sorted`'s gather, chunked scan with the madd or add
+  combine, and scatter of the run-end prefixes into bucket slots);
 - `add_scan`: the running sums of a (B, c, ...) grid along its c axis
   (`_scan_chunks` with the add combine), with every prefix if asked;
 - `double_n`: k doublings (`_double_n`);
@@ -39,8 +42,8 @@ from ..curve import jacobian as jac
 from ..curve.jacobian import JPoint
 
 # launches of each kernel entry; reset and read by chip_smoke.py
-LAUNCHES = {f"{op}_{g}": 0 for op in ("madd", "add", "double", "add_scan",
-                                      "double_n", "horner")
+LAUNCHES = {f"{op}_{g}": 0 for op in ("madd", "add", "double", "bucket_scan",
+                                      "add_scan", "double_n", "horner")
             for g in ("g1", "g2")}
 
 
@@ -180,6 +183,56 @@ def double_plain(ops, p: JPoint) -> JPoint:
     return JPoint(*_double_core(ops, *p))
 
 
+def _filled_infinity(ops, shape, dev) -> JPoint:
+    """Infinity points in three writable tensors of their own."""
+    return JPoint(*(a.clone(memory_format=torch.contiguous_format)
+                    for a in jac.infinity(ops, shape, dev)))
+
+
+def bucket_scan_plain(ops, pts: JPoint, order: torch.Tensor,
+                      d_sorted: torch.Tensor, num_buckets: int, c: int,
+                      affine: bool):
+    """The bucket scan of W windows over the (n,) table `pts`, given each
+    window's sort permutation `order` and sorted digits `d_sorted`
+    ((W, n) int64).  Lane (w, k) runs over window w's sorted positions
+    [k c, k c + c) (positions at or past n are infinity), one `madd`
+    (affine) or `add` per step with every lane side by side, and where a
+    position ends its digit's run it writes its running sum to that
+    digit's slot.  Returns (slots (W, num_buckets) points, infinity where
+    the bucket is empty; bucket_chunk (W, num_buckets) int64, the chunk
+    whose lane wrote the slot, else 0; valid (W, num_buckets) bool;
+    totals (B, W), each lane's sum), B = ceil(n / c)."""
+    W, n = order.shape
+    dev = pts.z.device
+    b = -(-n // c)
+    comb = madd_plain if affine else add_plain
+    slots = _filled_infinity(ops, (W, num_buckets), dev)
+    bucket_chunk = torch.zeros((W, num_buckets), dtype=torch.int64,
+                               device=dev)
+    valid = torch.zeros((W, num_buckets), dtype=torch.bool, device=dev)
+    first = torch.arange(b, device=dev) * c             # (B,)
+    inf = jac.infinity(ops, (W, b), dev)
+    acc = inf
+    for j in range(c):
+        pos = first + j
+        live = (pos < n).expand(W, b)
+        at = pos.clamp(max=n - 1)
+        rows = order[:, at]                             # (W, B)
+        q = jac.select(ops, live, JPoint(*(a[rows] for a in pts)), inf)
+        acc = comb(ops, acc, q)
+        d = d_sorted[:, at]
+        nxt = d_sorted[:, (pos + 1).clamp(max=n - 1)]
+        end = live & ((pos + 1 == n) | (d != nxt))
+        wi, ki = end.nonzero(as_tuple=True)
+        di = d[wi, ki]
+        for s, a in zip(slots, acc):
+            s[wi, di] = a[wi, ki]
+        bucket_chunk[wi, di] = ki
+        valid[wi, di] = True
+    totals = JPoint(*(a.transpose(0, 1).contiguous() for a in acc))
+    return slots, bucket_chunk, valid, totals
+
+
 def add_scan_plain(ops, grid: JPoint, collect: bool):
     """Running sums along axis 1 of a (B, c, *rest) point grid, one add
     per step with every lane side by side.  Returns (totals (B, *rest),
@@ -268,6 +321,34 @@ def _launch(op: str, ops, pts, out):
     return JPoint(*out)
 
 
+def _bucket_scan_cuda(ops, pts: JPoint, order, d_sorted, num_buckets: int,
+                      c: int, affine: bool):
+    elem = _elem(ops)
+    W, n = order.shape
+    dev = pts.z.device
+    if (order.dtype != torch.int64 or d_sorted.dtype != torch.int64
+            or d_sorted.shape != order.shape):
+        raise ValueError("bucket_scan needs (W, n) int64 order and digits")
+    if n >= 1 << 32 or not 0 < num_buckets < 1 << 31 or c < 1:
+        raise ValueError(f"bucket_scan: n = {n}, {num_buckets} buckets, "
+                         f"c = {c} out of range")
+    table = [_flat(a, elem) for a in pts]
+    if table[0].shape[0] != n:
+        raise ValueError("bucket_scan: the table and order disagree on n")
+    order, d_sorted = order.contiguous(), d_sorted.contiguous()
+    slots = _filled_infinity(ops, (W, num_buckets), dev)
+    bucket_chunk = torch.zeros((W, num_buckets), dtype=torch.int64,
+                               device=dev)
+    valid = torch.zeros((W, num_buckets), dtype=torch.bool, device=dev)
+    totals = _new((-(-n // c), W), elem, dev)
+    if W * n:
+        _call("point_scan.cu", "bucket_scan", ops, dev, int(affine),
+              *_ptrs(table), order.data_ptr(), d_sorted.data_ptr(),
+              *_ptrs(slots), bucket_chunk.data_ptr(), valid.data_ptr(),
+              *_ptrs(totals), W, n, c, num_buckets)
+    return slots, bucket_chunk, valid, totals
+
+
 def _add_scan_cuda(ops, grid: JPoint, collect: bool):
     elem = _elem(ops)
     batch = grid.z.shape[:grid.z.dim() - ops.elem_ndim]
@@ -333,6 +414,20 @@ def add(ops, p: JPoint, q: JPoint, out=None) -> JPoint:
 
 def double(ops, p: JPoint, out=None) -> JPoint:
     return _route("double", double_plain, ops, (p,), out)
+
+
+def bucket_scan(ops, pts: JPoint, order: torch.Tensor,
+                d_sorted: torch.Tensor, num_buckets: int, c: int,
+                affine: bool):
+    """The bucket scan of every window of one MSM (see
+    `bucket_scan_plain`); one launch on CUDA tensors.  affine=True needs
+    every Z of `pts` to be 0 or the Montgomery one: the kernel reads only
+    whether Z is zero."""
+    if _device(pts, "bucket_scan") == "cuda":
+        return _bucket_scan_cuda(ops, pts, order, d_sorted, num_buckets, c,
+                                 affine)
+    return bucket_scan_plain(ops, pts, order, d_sorted, num_buckets, c,
+                             affine)
 
 
 def add_scan(ops, grid: JPoint, collect: bool = False):

@@ -4,11 +4,12 @@ Counterpart of `zksnark_tpu/ops/msm.py`, in the same formulation:
 
 - c-bit windows; ONE batched sort orders every window's digit column
   (`torch.sort`, whose indices are the permutation);
-- per window, bucket sums are read off a prefix scan of the sorted points:
-  the points are laid out as (64, chunks) and a loop walks the 64
-  positions with every chunk of every window side by side, one point
-  kernel launch per step (`madd` when the points are affine-or-infinity);
-  the chunk carries and the tree sum are add scans, one launch each
+- per window, bucket sums are read off a prefix scan of the sorted points,
+  in chunks of 64 positions: one launch (`curve_kernels.bucket_scan`)
+  scans every chunk of every window side by side (`madd` when the points
+  are affine-or-infinity), reading the points through the permutation
+  and writing each bucket's run-end prefix to its slot; the chunk carries
+  and the tree sum are add scans, one launch each
   (`curve_kernels.add_scan`);
 - the weighted bucket reduction is Abel summation,
       sum_j j*B_j = 2^c * E_top - sum_j E_j,
@@ -159,53 +160,21 @@ def _bucket_windows_sorted(ops, pts: JPoint, order: torch.Tensor,
     W, n = order.shape
     dev = pts.z.device
     elem = pts.x.shape[1:]
-    comb = ((lambda p, q, out=None: jac.madd(ops, p, q, out)) if affine
-            else (lambda p, q, out=None: jac.add(ops, p, q, out)))
     cdim = min(_CHUNK, n)
     b = -(-n // cdim)
 
-    # sorted points laid out (cdim, B, W): step j reads one contiguous slab;
-    # padding positions gather the appended infinity point (index n)
-    pts_ext = _pad_to(ops, pts, n + 1)
-    idx = torch.cat([order, order.new_full((W, b * cdim - n), n)], dim=1)
-    idx = idx.reshape(W, b, cdim).permute(2, 1, 0).contiguous()
-    grid = _index(pts_ext, idx)                               # (cdim, B, W)
-    within = JPoint(*(torch.empty_like(a) for a in grid))
-    acc = jac.infinity(ops, (b, W), dev)
-    for j in range(cdim):
-        acc = comb(acc, _index(grid, j), out=_index(within, j))
-    totals = acc                                              # (B, W)
-    del grid
+    # one launch: each (window, chunk of cdim sorted positions) lane scans
+    # its points and leaves the within-chunk prefix at every run end in
+    # its bucket's slot (ends_w), with the chunk index and a validity
+    # flag; empty buckets keep (infinity, chunk 0), and carry[0] is
+    # infinity
+    ends_w, bucket_chunk, valid, totals = ck.bucket_scan(
+        ops, pts, order, d_sorted, num_buckets, cdim, affine)
 
     # exclusive chunk carries (~2B general adds)
     shifted = _cat(jac.infinity(ops, (1, W), dev),
                    _index(totals, slice(0, b - 1)))
     carry = _prefix_scan(ops, shifted)                        # (B, W)
-    # within-chunk prefix at every sorted position, window-major (W, N)
-    flat_w = JPoint(*(a.permute(2, 1, 0, *range(3, a.dim()))
-                      .reshape((W, b * cdim) + elem)[:, :n] for a in within))
-    del within
-
-    # run-end mask: position k closes its digit's run
-    nxt = torch.cat([d_sorted[:, 1:],
-                     d_sorted.new_full((W, 1), num_buckets)], dim=1)
-    run_end = d_sorted != nxt
-    tgt = torch.where(run_end, d_sorted, d_sorted.new_full((), num_buckets))
-    rows = (tgt + torch.arange(W, device=dev).unsqueeze(1)
-            * (num_buckets + 1)).reshape(-1)
-
-    # scatter run-end prefixes and run-end chunk indices to bucket slots
-    # (num_buckets + 1 rows per window; the extra row takes the non-ends);
-    # empty buckets keep (infinity, chunk 0) and carry[0] = infinity
-    inf_b = jac.infinity(ops, (W * (num_buckets + 1),), dev)
-    slots = _pack(inf_b, (W * (num_buckets + 1),)).index_copy(
-        0, rows, _pack(flat_w, (W * n,)))
-    ends_w = _unpack(slots.reshape(W, num_buckets + 1, -1)[:, :num_buckets],
-                     elem)
-    pos_chunk = (torch.arange(n, device=dev) // cdim).repeat(W)
-    bucket_chunk = torch.zeros(W * (num_buckets + 1), dtype=torch.int64,
-                               device=dev).index_copy(0, rows, pos_chunk)
-    bucket_chunk = bucket_chunk.reshape(W, num_buckets + 1)[:, :num_buckets]
     carry_rows = _pack(carry, (b * W,))
     ends_c = _unpack(carry_rows[bucket_chunk * W + torch.arange(
         W, device=dev).unsqueeze(1)], elem)
@@ -213,9 +182,6 @@ def _bucket_windows_sorted(ops, pts: JPoint, order: torch.Tensor,
 
     # forward-fill E_j = prefix at the end of the last NON-EMPTY bucket
     # <= j, from an explicit validity flag and an int running max
-    valid = torch.zeros(W * (num_buckets + 1), dtype=torch.bool,
-                        device=dev).index_fill(0, rows, True)
-    valid = valid.reshape(W, num_buckets + 1)[:, :num_buckets]
     src = torch.where(valid, torch.arange(num_buckets, device=dev),
                       torch.full((), -1, device=dev, dtype=torch.int64))
     last_valid = torch.cummax(src, dim=1).values

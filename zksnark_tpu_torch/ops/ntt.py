@@ -1,12 +1,18 @@
 """Radix-2 NTT / iNTT over BN254 Fr limb tensors — the polynomial engine.
 
-Counterpart of `zksnark_tpu/ops/ntt.py`.  The butterflies are the
-reshape form of the JAX package's `_butterflies_unrolled` (bit-identical
-to its scan form): at stage s the (n, 8) array is viewed as
-(n / 2^s, 2^s, 8), the two halves of each block are the butterfly pairs,
-and the stage twiddles are a strided slice of one power table.  Every
-twiddle, n^-1 and coset multiply runs on the montmul kernel K1
-(`ops/montmul.py`); the adds and subtracts are plain PyTorch.
+Counterpart of `zksnark_tpu/ops/ntt.py`: the same in-order-output DIT
+butterflies on bit-reversed input (bit-identical to its
+`_butterflies_unrolled` and scan forms), split into passes.  Stages
+s0 .. s0 + k - 1 pair indices that differ only in bits s0 - 1 ..
+s0 + k - 2, so they act on independent groups of 2^k elements with
+stride 2^(s0 - 1); a pass runs those k stages group by group.  On a CUDA
+tensor each pass is one launch of the NTT kernel (`csrc/ntt.cu`), which
+holds a group in shared memory and runs each butterfly's twiddle product
+(K1's Montgomery product), add and subtract in registers; the first pass
+reads its input bit-reversed.  On a CPU tensor the plain version runs the
+same passes with the same group and twiddle index arithmetic.  The n^-1,
+coset and vanishing multiplies stay elementwise launches of K1
+(`ops/montmul.py`).
 
 Coset evaluation (for the quotient h: the vanishing polynomial is the
 constant g^n - 1 on the coset g*D) is a pointwise pre/post scale.
@@ -18,12 +24,24 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _build
 from .._device import resolve_device
-from ..field import params
-from ..field.limb import FR_CTX, MontCtx, add, sub
+from ..field import limb, params
+from ..field.limb import FR_CTX, MontCtx, sub
 from .montmul import mont_mul
 
 L = params.NUM_LIMBS
+MAX_PASS_LOG = 10      # a pass runs at most 10 stages: 2^10 elements
+
+# launches of the NTT kernel (one per pass); reset and read by
+# chip_smoke.py
+LAUNCHES = {"ntt_fr": 0}
+
+
+def pass_widths(log_n: int) -> tuple:
+    """ceil(log_n / 10) passes, their stage counts as even as possible."""
+    p = -(-log_n // MAX_PASS_LOG)
+    return tuple(log_n // p + (i < log_n % p) for i in range(p))
 
 
 class DomainTables(NamedTuple):
@@ -49,11 +67,18 @@ def _pow_table(base: int, count: int, p: int):
 
 
 class Domain:
-    """A radix-2 evaluation domain of size n = 2^k in Fr, with coset g."""
+    """A radix-2 evaluation domain of size n = 2^k in Fr, with coset g;
+    its transforms run in passes of `widths` stages (default
+    `pass_widths`)."""
 
     def __init__(self, log_n: int, device, ctx: MontCtx = FR_CTX,
-                 coset_gen: int = params.FR_GENERATOR):
+                 coset_gen: int = params.FR_GENERATOR, widths=None):
         assert 1 <= log_n <= params.FR_TWO_ADICITY
+        self.widths = tuple(widths or pass_widths(log_n))
+        if (sum(self.widths) != log_n
+                or not all(1 <= k <= MAX_PASS_LOG for k in self.widths)):
+            raise ValueError(f"pass widths {self.widths} do not split "
+                             f"log_n = {log_n} into passes of 1..10")
         self.ctx = ctx
         self.device = device
         self.log_n = log_n
@@ -111,32 +136,77 @@ def _bitrev(log_n: int, device) -> torch.Tensor:
     return rev
 
 
-def _butterflies(ctx: MontCtx, log_n: int, tw_table: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
-    """In-order-output DIT butterflies given bit-reversed input."""
+def butterflies_plain(ctx: MontCtx, log_n: int, tw_table: torch.Tensor,
+                      x: torch.Tensor, widths) -> torch.Tensor:
+    """The in-order-output DIT butterflies of bit-reversed x, pass by
+    pass: at stage s0 + r of a pass of k stages starting at s0, element
+    i = (hi, mid, lo) (mid < 2^k, lo < 2^(s0-1)) pairs with its partner
+    in bit r of mid, and the twiddle is tw_table[j << (log_n - s0 - r)]
+    with j = (mid mod 2^r) 2^(s0-1) + lo, as in the kernel."""
     n = 1 << log_n
-    for s in range(1, log_n + 1):
-        half = 1 << (s - 1)
-        m = 1 << s
-        xb = x.reshape(n // m, m, L)
-        u = xb[:, :half]
-        v = xb[:, half:]
-        w = tw_table[0:n // 2:n // m]              # omega^(j * n/2^s)
-        t = mont_mul(ctx, w.unsqueeze(0), v)
-        x = torch.cat([add(ctx, u, t), sub(ctx, u, t)], dim=1).reshape(n, L)
+    dev = x.device
+    x = x[_bitrev(log_n, dev)]
+    s0 = 1
+    for k in widths:
+        lo_n = 1 << (s0 - 1)
+        hi_n = n >> (s0 - 1 + k)
+        for r in range(k):
+            xr = x.reshape(hi_n, 1 << (k - 1 - r), 2, 1 << r, lo_n, L)
+            u, v = xr[:, :, 0], xr[:, :, 1]
+            j = ((torch.arange(1 << r, device=dev) << (s0 - 1)).unsqueeze(1)
+                 | torch.arange(lo_n, device=dev))     # (2^r, lo_n)
+            t = limb.mont_mul(ctx, tw_table[j << (log_n - s0 - r)], v)
+            x = torch.stack([limb.add(ctx, u, t), limb.sub(ctx, u, t)],
+                            dim=2).reshape(n, L)
+        s0 += k
     return x
+
+
+def _butterflies_cuda(ctx: MontCtx, log_n: int, tw_table: torch.Tensor,
+                      x: torch.Tensor, widths) -> torch.Tensor:
+    if ctx.p != FR_CTX.p:
+        raise ValueError("the NTT kernel runs over Fr only")
+    n = 1 << log_n
+    if x.dtype != limb.DT or tuple(x.shape) != (n, L):
+        raise ValueError(f"NTT kernel needs ({n}, {L}) int32 limbs, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    x, tw = (t.contiguous() for t in (x, tw_table))
+    x, tw = (t.clone() if t.data_ptr() % 16 else t for t in (x, tw))
+    out = torch.empty_like(x)
+    fn = _build.lib("ntt.cu").zk_ntt_pass
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    src, s0 = x, 1
+    for k in widths:
+        elems = max(1 << k, min(n, 256))
+        _build.check(fn(src.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n,
+                        s0, k, int(src is x), elems, stream), "ntt pass")
+        LAUNCHES["ntt_fr"] += 1
+        src, s0 = out, s0 + k
+    return out
+
+
+def butterflies(ctx: MontCtx, log_n: int, tw_table: torch.Tensor,
+                x: torch.Tensor, widths) -> torch.Tensor:
+    """In-order-output DIT butterflies of x read in bit-reversed order,
+    in passes of `widths` stages: one kernel launch per pass on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if x.device.type == "cuda":
+        return _butterflies_cuda(ctx, log_n, tw_table, x, widths)
+    if x.device.type == "cpu":
+        return butterflies_plain(ctx, log_n, tw_table, x, widths)
+    raise ValueError(f"ntt: unsupported device {x.device}")
 
 
 def ntt(domain: Domain, coeffs: torch.Tensor) -> torch.Tensor:
     """coefficients -> evaluations on the domain (Montgomery in/out)."""
-    x = coeffs[_bitrev(domain.log_n, coeffs.device)]
-    return _butterflies(domain.ctx, domain.log_n, domain.t.tw_table, x)
+    return butterflies(domain.ctx, domain.log_n, domain.t.tw_table, coeffs,
+                       domain.widths)
 
 
 def intt(domain: Domain, evals: torch.Tensor) -> torch.Tensor:
     """evaluations -> coefficients (Montgomery in/out)."""
-    x = evals[_bitrev(domain.log_n, evals.device)]
-    x = _butterflies(domain.ctx, domain.log_n, domain.t.tw_table_inv, x)
+    x = butterflies(domain.ctx, domain.log_n, domain.t.tw_table_inv, evals,
+                    domain.widths)
     return mont_mul(domain.ctx, x, domain.t.n_inv_mont.unsqueeze(0))
 
 
