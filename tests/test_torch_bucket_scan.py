@@ -228,3 +228,17 @@ def test_bucket_scan_rejects_other_devices():
     order = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="unsupported device"):
         ck.bucket_scan(ops, meta, order, order, 16, 4, True)
+
+
+@pytest.mark.parametrize("bad", [-1, 16])
+def test_kernel_wrapper_rejects_out_of_range_digits(bad):
+    """The kernel narrows digits to u32 and writes slot w nb + digit
+    without a bound, so its wrapper refuses a digit outside [0, nb)
+    before it builds or launches anything."""
+    pts = jac.JPoint(*(torch.zeros((4, 8), dtype=torch.int32)
+                       for _ in range(3)))
+    order = torch.arange(4).repeat(2, 1)
+    d_sorted = torch.tensor([[0, 1, 2, 3], [0, 1, 2, 3]])
+    d_sorted[1, 0 if bad < 0 else -1] = bad
+    with pytest.raises(ValueError, match=r"digit outside \[0, 16\)"):
+        ck._bucket_scan_cuda(FQ_OPS, pts, order, d_sorted, 16, 4, True)

@@ -4,11 +4,14 @@
 s0 .. s0 + k - 1 act on independent groups of 2^k elements, one kernel
 launch per pass on the card and, on CPU tensors, the plain version
 `butterflies_plain` with the kernel's group and twiddle index
-arithmetic.  `ntt`, `intt`, `coset_ntt` and `coset_intt` of domains whose
-pass widths split log_n unevenly (and in an order the default split
-would not take) must equal `zksnark_tpu.ops.ntt` bit for bit at
-log_n in {1, 5, 10, 11, 13}.  Inputs come from a numpy seed.  Tolerance:
-exact equality of canonical residues.
+arithmetic.  At log_n in {1, 5, 10, 11, 13} the domain's `ntt`, `intt`,
+`coset_ntt` and `coset_intt` (the default split) and the butterflies in
+passes that split log_n unevenly (and in an order the default split
+would not take), forward and, with the n^-1 product, inverse, must
+equal `zksnark_tpu.ops.ntt` bit for bit.  The coset and n^-1 products
+around the butterflies do not depend on the split, so the uneven splits
+are held against `ntt` and `intt` alone.  Inputs come from a numpy
+seed.  Tolerance: exact equality of canonical residues.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from zksnark_tpu.ops import ntt as jntt  # noqa: E402
 from zksnark_tpu_torch.field import limb  # noqa: E402
 from zksnark_tpu_torch.ops import ntt  # noqa: E402
+from zksnark_tpu_torch.ops.montmul import mont_mul  # noqa: E402
 
 CTX = limb.FR_CTX
 TRANSFORMS = ("ntt", "intt", "coset_ntt", "coset_intt")
@@ -40,7 +44,7 @@ def _rand(seed, n):
 @pytest.fixture(scope="module", params=CASES,
                 ids=[f"log_n{n}-{'+'.join(map(str, w))}" for n, w in CASES])
 def case(request):
-    """(port domain with these widths, input, the JAX package's four
+    """(port domain, uneven pass widths, input, the JAX package's four
     transforms of it; dispatched first, they run while the port
     computes)."""
     log_n, widths = request.param
@@ -49,16 +53,29 @@ def case(request):
     want = jax.jit(lambda a: tuple(getattr(jntt, f)(jd, a)
                                    for f in TRANSFORMS))(
         jnp.asarray(limb.limbs_to_jax_np(m)))
-    return ntt.Domain(log_n, "cpu", widths=widths), torch.from_numpy(m), \
+    return ntt.Domain(log_n, "cpu"), widths, torch.from_numpy(m), \
         dict(zip(TRANSFORMS, want))
 
 
 @pytest.mark.parametrize("fn", TRANSFORMS)
 def test_pass_form_matches_jax(case, fn):
-    d, x, want = case
+    d, _, x, want = case
     np.testing.assert_array_equal(
         limb.limbs_to_jax_np(getattr(ntt, fn)(d, x).numpy()),
         np.asarray(want[fn]))
+
+
+@pytest.mark.parametrize("fn", ("ntt", "intt"))
+def test_uneven_passes_match_jax(case, fn):
+    """The butterflies in the case's uneven passes: forward with the
+    twiddle table, inverse with the inverse table and the n^-1 product."""
+    d, widths, x, want = case
+    tw = d.t.tw_table if fn == "ntt" else d.t.tw_table_inv
+    got = ntt.butterflies(CTX, d.log_n, tw, x, widths)
+    if fn == "intt":
+        got = mont_mul(CTX, got, d.t.n_inv_mont.unsqueeze(0))
+    np.testing.assert_array_equal(limb.limbs_to_jax_np(got.numpy()),
+                                  np.asarray(want[fn]))
 
 
 def test_pass_widths():
@@ -70,11 +87,3 @@ def test_pass_widths():
         assert max(w) <= 10 and max(w) - min(w) <= 1
     assert ntt.pass_widths(20) == (10, 10)
     assert ntt.pass_widths(13) == (7, 6)
-
-
-@pytest.mark.parametrize("log_n,widths", [(6, (4, 1)), (11, (11,)),
-                                          (6, (0, 6)), (6, (3,))])
-def test_domain_rejects_bad_widths(log_n, widths):
-    """Widths must sum to log_n, each pass 1..10 stages."""
-    with pytest.raises(ValueError, match="pass widths"):
-        ntt.Domain(log_n, "cpu", widths=widths)

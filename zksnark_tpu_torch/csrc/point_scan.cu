@@ -47,10 +47,11 @@
 // block own one contiguous range of the flat (nwin, n) arrays.  The block
 // stages that range in shared memory a tile of kBucketTile positions at
 // a time, coalesced (a thread loads entries of the block's lanes, not of
-// its own), narrowed to u32 (a row index or digit; the wrapper checks the
-// bounds), with one more digit per lane than it walks: position k c + c,
-// the next chunk's first, says whether the lane's last position ends a
-// run.  Each lane then stages its next point by cp.async as add_scan
+// its own), narrowed to u32 (a row index or digit: the wrapper checks
+// that n < 2^32 and that every digit lies in [0, nb); that `order` is a
+// permutation of the rows is a precondition), with one more digit per
+// lane than it walks: position k c + c, the next chunk's first, says
+// whether the lane's last position ends a run.  Each lane then stages its next point by cp.async as add_scan
 // does, X and Y in full and, for the mixed add, only the first 16 bytes
 // of Z: under the affine invariant Z is 0 or the Montgomery one, whose
 // low word is not 0.  The running sum is madd_core (affine table) or
@@ -168,7 +169,9 @@ __global__ void __launch_bounds__(kScanThreads)
 // those past the last lane, which skip the arithmetic.  The minimum of
 // 11 (G1) or 6 (G2) blocks per SM caps the registers at those of the
 // elementwise madd or below (80 and 168, with small spills); uncapped,
-// ptxas takes 111 and 192 (PERF.md).
+// ptxas takes 111 and 192.  probe_register_caps.py times the variants:
+// the G1 cap costs a few percent of the G1 scan, the G2 cap gains a
+// little (PERF.md).
 template <class E, bool MIXED>
 __global__ void __launch_bounds__(kBucketThreads,
                                  sizeof(E) == sizeof(Fe) ? 11 : 6)

@@ -332,6 +332,10 @@ def _bucket_scan_cuda(ops, pts: JPoint, order, d_sorted, num_buckets: int,
     if n >= 1 << 32 or not 0 < num_buckets < 1 << 31 or c < 1:
         raise ValueError(f"bucket_scan: n = {n}, {num_buckets} buckets, "
                          f"c = {c} out of range")
+    # each window's digits ascend, so its first and last bound them all
+    if W * n and bool(((d_sorted[:, 0] < 0)
+                       | (d_sorted[:, -1] >= num_buckets)).any()):
+        raise ValueError(f"bucket_scan: a digit outside [0, {num_buckets})")
     table = [_flat(a, elem) for a in pts]
     if table[0].shape[0] != n:
         raise ValueError("bucket_scan: the table and order disagree on n")
@@ -420,7 +424,10 @@ def bucket_scan(ops, pts: JPoint, order: torch.Tensor,
                 d_sorted: torch.Tensor, num_buckets: int, c: int,
                 affine: bool):
     """The bucket scan of every window of one MSM (see
-    `bucket_scan_plain`); one launch on CUDA tensors.  affine=True needs
+    `bucket_scan_plain`); one launch on CUDA tensors.  Each row of
+    `d_sorted` must ascend and each row of `order` be a permutation of
+    the table's rows: the kernel checks neither (its wrapper checks the
+    digits' range and the arrays' dtype and shape).  affine=True needs
     every Z of `pts` to be 0 or the Montgomery one: the kernel reads only
     whether Z is zero."""
     if _device(pts, "bucket_scan") == "cuda":

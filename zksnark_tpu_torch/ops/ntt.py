@@ -68,17 +68,12 @@ def _pow_table(base: int, count: int, p: int):
 
 class Domain:
     """A radix-2 evaluation domain of size n = 2^k in Fr, with coset g;
-    its transforms run in passes of `widths` stages (default
-    `pass_widths`)."""
+    its transforms run in passes of `pass_widths(k)` stages."""
 
     def __init__(self, log_n: int, device, ctx: MontCtx = FR_CTX,
-                 coset_gen: int = params.FR_GENERATOR, widths=None):
+                 coset_gen: int = params.FR_GENERATOR):
         assert 1 <= log_n <= params.FR_TWO_ADICITY
-        self.widths = tuple(widths or pass_widths(log_n))
-        if (sum(self.widths) != log_n
-                or not all(1 <= k <= MAX_PASS_LOG for k in self.widths)):
-            raise ValueError(f"pass widths {self.widths} do not split "
-                             f"log_n = {log_n} into passes of 1..10")
+        self.widths = pass_widths(log_n)
         self.ctx = ctx
         self.device = device
         self.log_n = log_n
