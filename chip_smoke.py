@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`zksnark_tpu_torch`) on one card.
 
-    python3 chip_smoke.py                  # n = 2^20, three proves
-    python3 chip_smoke.py --profile TABLE  # and one prove broken down
+    python3 chip_smoke.py                  # every phase below
+    python3 chip_smoke.py --profile TABLE  # and one 2^20 prove broken down
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
@@ -26,7 +26,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    random CUDA inputs at the shapes the main path gives it: the two
    outputs must again be equal bit for bit, and both are timed with CUDA
    events, the chains, the bucket scan and the NTT also beside the loop
-   of launches that each replaces.
+   of launches that each replaces.  The G1 bucket scan is also checked
+   at the keccak path's C MSM digit columns (W = 16, c = 16, 2^18
+   positions, window 0 in {0, 1}, windows 1-15 all 0).
 3. reference: a small circuit (n = 2^3) proves on the card and with the
    plain versions on the CPU; the two proofs must be equal.
 4. path: the main path at full size — the square-chain circuit with
@@ -39,6 +41,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each prove must launch the bucket scan once per MSM (four G1, one
    G2), the elementwise madd not at all (setup's comb encryption still
    runs it) and the NTT kernel once per pass of its seven transforms.
+5. keccak: the example `zksnark_tpu_torch.examples.keccak_proof` at full
+   size (4-byte preimage, 232,016 gates, n = 2^18, 288 public inputs):
+   its host stages timed, setup, two proves with distinct blindings,
+   each verified on the digest bits and zero checkers and rejected with
+   a digest bit flipped; counts reset before setup, the same per-prove
+   launches required, every kernel entry but the elementwise double
+   launched.
+6. cli: `python -m zksnark_tpu_torch.cli` setup -> prove -> verify on
+   `simple.zk`, one process per command (exit 0 each), and verify with a
+   wrong public input (exit 1); setup and prove together must launch
+   every kernel entry but the elementwise double.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit (nvidia-smi), and {"ok": true, "device": {...}}.  Imports nothing of
@@ -54,6 +67,7 @@ import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -667,6 +681,8 @@ def time_phase(dev, seed: int, results: dict) -> None:
             rnd(n, FQ_CTX, elem), rnd(n, FQ_CTX, elem),
             rnd(n, FQ_CTX, elem)), results)
         bucket_timing(ops, g, lambda n: rnd(n, FQ_CTX, elem), gen, results)
+        if g == "g1":
+            bucket_c_msm(lambda n: rnd(n, FQ_CTX, elem), gen, results)
     ntt_timing(rnd(1 << NTT_LOG_N, FR_CTX), results)
 
 
@@ -827,6 +843,71 @@ def bucket_timing(ops, g, rnd_elem, gen, results) -> None:
         f"launches {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); max |kernel - "
         f"plain|, |loop - plain| = {err}")
+
+
+# the keccak path's C MSM (`examples/keccak_proof.py`, n = 2^18): its
+# scalars are the witness tail, num_wires - input - 1 = 231,761 values of
+# 0 or 1 padded with zeros (and the points with infinity) to 2^18, so
+# window 0's digits are 0 / 1 and windows 1-15 hold one digit-0 run
+C_MSM_SHAPE = {"windows": 16, "c": 16, "n": 1 << 18, "points": 231761}
+
+
+def bucket_c_msm(rnd_elem, gen, results) -> None:
+    """The G1 bucket scan at the C MSM's digit columns (one run across
+    all 4,096 chunks in 15 windows, two in window 0), the table padded
+    with infinity as `_pad_msm` pads it: kernel and plain version on the
+    same inputs, compared and timed; then the same table with random
+    digits, to tell the digits' share of the time from the size's."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.curve.field_ops import FQ_OPS as ops
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+    from zksnark_tpu_torch.ops import msm
+
+    W, c, n, m = (C_MSM_SHAPE[k] for k in ("windows", "c", "n", "points"))
+    dev = gen.device
+    pad = torch.arange(n, device=dev) >= m
+    tab = jac.JPoint(rnd_elem(n), rnd_elem(n), ops.select(
+        pad, ops.zero((n,), dev), ops.one((n,), dev)).contiguous())
+    scalars = torch.zeros((n, 8), dtype=torch.int32, device=dev)
+    scalars[:m, 0] = torch.randint(0, 2, (m,), dtype=torch.int32,
+                                   device=dev, generator=gen)
+    digits = msm._digit_columns(scalars, c)
+    if digits.shape[0] != W or int(digits[1:].max()) != 0:
+        raise SystemExit("C MSM digit columns are not as described")
+    d_sorted, order = torch.sort(digits, dim=1)
+    args = (ops, tab, order, d_sorted, 1 << c, 64, True)
+    ms, got = time_cuda(lambda: ck.bucket_scan(*args), 5)
+    plain_ms, want = time_cuda(lambda: ck.bucket_scan_plain(*args), 1)
+    err = bucket_err(got, want)
+    d_rand, o_rand = torch.sort(torch.randint(
+        0, 1 << c, (W, n), device=dev, generator=gen), dim=1)
+    args = (ops, tab, o_rand, d_rand, 1 << c, 64, True)
+    rand_ms, got = time_cuda(lambda: ck.bucket_scan(*args), 5)
+    err = max(err, bucket_err(got, ck.bucket_scan_plain(*args)))
+    del got, want
+    cnt = CountingOps(ops)
+    ck.madd_plain(cnt, *(jac.JPoint(*(a[i:i + 1] for a in tab))
+                         for i in (0, 1)))
+    # what these inputs need: a mixed add per real point and window (the
+    # padding is infinity), the table and digits read, the slots, chunk
+    # totals and flags written
+    b = n // 64
+    byt = (3 * 32 * n + 2 * 8 * W * n + W * (1 << c) * (3 * 32 + 9)
+           + 3 * 32 * b * W)
+    bnd = bound(byt, W * m * (cnt.muls * IMAD_PER_MUL
+                              + cnt.adds * OPS_PER_ADD))
+    r = results["bucket_scan_g1"]
+    r["c_msm"] = {"shape": [W, c, n], "digits": "window 0 in {0, 1}, "
+                  "windows 1-15 all 0", "ms": ms, "plain_ms": plain_ms,
+                  "random_digits_ms": rand_ms, "err": err, **bnd}
+    r["path_shape_err"] = max(r["path_shape_err"], err)
+    r["checked_shapes"] = r["checked_shapes"] + [[W, c, n, "0/1"]]
+    log(f"[timing] bucket_scan_g1 at the C MSM's digits W={W} c={c} "
+        f"n={n} ({m} points, window 0 in {{0, 1}}, windows 1-15 all 0): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); the same table "
+        f"with random digits: kernel {rand_ms:.4f} ms; max |kernel - "
+        f"plain| = {err}")
 
 
 def ntt_timing(x, results) -> None:
@@ -1150,6 +1231,204 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
             "peak_gib": peak, "state": (dqap, crs, wit)}
 
 
+def keccak_phase(dev, n_bytes: int, n_proves: int) -> dict:
+    """The port's example path at full size (`examples/keccak_proof.py`):
+    the Keccak-256 preimage circuit built, its witness and R1CS made and
+    laid out on the card (each host stage timed), setup with the
+    example's trapdoor, then `n_proves` proves with distinct blindings;
+    each proof must verify on the digest bits and zero checkers and be
+    rejected with a digest bit flipped.  Counts are reset just before
+    setup and read after it and after each prove."""
+    from zksnark_tpu_torch.examples import keccak_proof as kp
+    from zksnark_tpu_torch.field.limb import FR_CTX
+    from zksnark_tpu_torch.groth16 import protocol, prover
+    from zksnark_tpu_torch.groth16.backend import BN254Backend
+    from zksnark_tpu_torch.utils import keccak_host
+    from zksnark_tpu_torch.utils import serialization as ser
+
+    host_s: dict = {}
+
+    def timed(label, fn):
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        host_s[label] = time.time() - t0
+        log(f"[keccak] {label}: {host_s[label]:.2f} s")
+        return out
+
+    pre = kp.preimage_of(n_bytes)
+    digest = keccak_host.keccak256(pre)
+    c, inst, n_checkers = timed("build (host)", lambda: kp.build(n_bytes))
+    weights = timed("witness (host, CircuitInstance.weights)",
+                    lambda: inst.weights(kp.bits_of(pre)))
+    r1cs = timed("r1cs (host)", inst.r1cs)
+    log(f"[keccak] {n_bytes}-byte preimage: {r1cs.num_gates} gates, "
+        f"{r1cs.num_wires} wires, {r1cs.input} verify wires")
+    dqap = timed("compile_r1cs (host ELL tables, copied to the card)",
+                 lambda: prover.compile_r1cs(r1cs, device=dev))
+    timed("witness codec to limbs (host)",
+          lambda: FR_CTX.to_limbs_np(weights))
+    timed("witness codec to JSON (host)",
+          lambda: ser.witness_to_json(weights))
+    public = kp.public_inputs(digest, n_checkers)
+    if weights[1:1 + len(public)] != public:
+        raise SystemExit("keccak: the circuit's digest wires differ from "
+                         "the host Keccak-256")
+
+    # setup's host part grows with the public inputs: sum_gamma is one
+    # host G1 scalar multiplication per verify wire and the unity wire
+    from zksnark_tpu_torch.curve import bn254 as hc
+
+    t0 = time.time()
+    for k in range(8):
+        hc.g1_scalar_mul(hc.G1_GEN_PT, FR_CTX.p - 1 - 7 * k)
+    smul_s = (time.time() - t0) / 8
+    host_s["host G1 scalar multiplication, each"] = smul_s
+    log(f"[keccak] host G1 scalar multiplication: {smul_s * 1e3:.1f} ms "
+        f"each, x {r1cs.input + 1} for sum_gamma = "
+        f"{smul_s * (r1cs.input + 1):.2f} s")
+
+    base = torch.cuda.memory_allocated() / 2**30
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    crs = prover.device_setup(dqap, trapdoor=kp.TRAPDOOR)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    c_setup = counts()
+    setup_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[keccak] device_setup n={dqap.n}: {setup_s:.2f} s; launches "
+        f"{c_setup}; peak device memory {setup_peak:.2f} GiB (resident "
+        f"before it {base:.2f} GiB)")
+    expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
+              "madd_g2": 0, "ntt_fr": 7 * len(dqap.domain.widths)}
+    be = BN254Backend()
+    pair = (crs.sigmag1, crs.sigmag2)
+    tampered = list(public)
+    tampered[0] ^= 1
+    per_prove, prev = [], c_setup
+    for i in range(n_proves):
+        blinding = (kp.BLINDING[0] + i, kp.BLINDING[1] + i)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        proof = prover.device_prove(dqap, crs, weights, blinding=blinding)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        now = counts()
+        launches = diff(now, prev)
+        prev = now
+        t1 = time.time()
+        ok = protocol.verify_fast(be, pair, public, proof)
+        verify_s = time.time() - t1
+        rej = protocol.verify_fast(be, pair, tampered, proof)
+        log(f"[keccak] prove {i} (blinding {blinding}): {ms:.1f} ms; "
+            f"launches {launches}; peak device memory {peak:.2f} GiB; "
+            f"verify {ok} ({verify_s:.2f} s), tampered digest bit {rej}")
+        if not ok or rej:
+            raise SystemExit(f"keccak proof {i} failed verification "
+                             f"(accept {ok}, tampered accept {rej})")
+        wrong = {k: launches[k] for k, v in expect.items()
+                 if launches[k] != v}
+        if wrong:
+            raise SystemExit(f"keccak prove {i} launched {wrong}, expected "
+                             f"{ {k: expect[k] for k in wrong} }")
+        per_prove.append({"ms": ms, "launches": launches, "peak_gib": peak,
+                          "verify_s": verify_s})
+    total = counts()
+    zero = [k for k, v in total.items() if v == 0 and k not in OFF_PATH]
+    if zero:
+        raise SystemExit(f"kernels never launched on the keccak path: "
+                         f"{zero}")
+    summary = {"gates": r1cs.num_gates, "wires": r1cs.num_wires,
+               "inputs": r1cs.input, "n": dqap.n, "host_s": host_s,
+               "setup_s": setup_s, "setup_peak_gib": setup_peak,
+               "prove_ms": [p["ms"] for p in per_prove],
+               "prove_peak_gib": [p["peak_gib"] for p in per_prove],
+               "verify_s": [p["verify_s"] for p in per_prove],
+               "launches_per_prove": per_prove[-1]["launches"]}
+    log(f"[keccak] summary {json.dumps(summary)}")
+    return {"launches": total, "summary": summary, "proves": per_prove}
+
+
+# runs the CLI as `python -m zksnark_tpu_torch.cli` does (runpy), then
+# writes the kernel launches of its process to stderr
+CLI_SHIM = """import json, runpy, sys
+from zksnark_tpu_torch.ops import curve_kernels, montmul, ntt
+sys.argv[0] = "zksnark_tpu_torch.cli"
+try:
+    runpy.run_module("zksnark_tpu_torch.cli", run_name="__main__",
+                     alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+print("LAUNCHES " + json.dumps({k: v for d in (montmul.LAUNCHES,
+      ntt.LAUNCHES, curve_kernels.LAUNCHES) for k, v in d.items()}),
+      file=sys.stderr)
+sys.exit(code)
+"""
+
+
+def cli_phase() -> dict:
+    """The CLI on the card, one process per command as a user runs it:
+    setup -> prove (--check-witness) -> verify on `simple.zk`, each
+    exiting 0, and verify with a wrong public input exiting 1.  Each
+    process starts with its counts at 0; setup and prove together must
+    launch every kernel of the path."""
+    # the CRS and proof files go to a scratch directory under the
+    # gitignored build directory, removed afterwards
+    build_dir = os.path.join(HERE, "zksnark_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as work:
+        return _cli_steps(work)
+
+
+def _cli_steps(work: str) -> dict:
+    circ = os.path.join(HERE, "test_programs", "simple.zk")
+    crs = os.path.join(work, "crs.json")
+    proof = os.path.join(work, "proof.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    steps = [
+        ("setup", ["setup", circ, "--crs", crs], 0),
+        ("prove", ["prove", circ, "--crs", crs, "--inputs", "3,2,4",
+                   "--proof", proof, "--check-witness"], 0),
+        ("verify [2, 34]", ["verify", circ, "--crs", crs, "--proof", proof,
+                            "--public", "2,34"], 0),
+        ("verify [2, 35]", ["verify", circ, "--crs", crs, "--proof", proof,
+                            "--public", "2,35"], 1),
+    ]
+    total = {k: 0 for k in counts()}
+    for label, args, want in steps:
+        t0 = time.time()
+        out = subprocess.run([sys.executable, "-c", CLI_SHIM] + args,
+                             cwd=HERE, env=env, capture_output=True,
+                             text=True, timeout=300)
+        lines = [ln for ln in out.stderr.splitlines()
+                 if ln.startswith("LAUNCHES ")]
+        if not lines:
+            raise SystemExit(f"cli {label}: no launch counts; stderr:\n"
+                             f"{out.stderr[-2000:]}")
+        launches = json.loads(lines[-1][len("LAUNCHES "):])
+        said = out.stdout.strip().splitlines()
+        log(f"[cli] {label}: exit {out.returncode} "
+            f"({time.time() - t0:.1f} s): {said[-1] if said else ''}; "
+            f"launches {launches}")
+        if out.returncode != want:
+            raise SystemExit(f"cli {label} exited {out.returncode}, "
+                             f"expected {want}; stderr:\n"
+                             f"{out.stderr[-2000:]}")
+        for k, v in launches.items():
+            total[k] += v
+    zero = [k for k, v in total.items() if v == 0 and k not in OFF_PATH]
+    if zero:
+        raise SystemExit(f"kernels never launched by the CLI: {zero}")
+    log(f"[cli] launches over its four processes: {total}")
+    return {"launches": total}
+
+
 def profile_phase(dqap, crs, wit, table_path: str) -> None:
     """Where a prove's time goes: its stages timed one by one (each ends
     in a synchronize), then one whole prove under torch.profiler (device
@@ -1256,6 +1535,12 @@ def main(argv=None) -> int:
     path = path_phase(dev, log_n, n_proves)
     if args.profile:
         profile_phase(*path["state"], args.profile)
+    # free the square chain's circuit and CRS: the keccak path's peak
+    # memory is read without them
+    del path["state"]
+    torch.cuda.empty_cache()
+    keccak = keccak_phase(dev, 4, 2)
+    cli = cli_phase()
 
     kernels = []
     for name, r in results.items():
@@ -1271,10 +1556,20 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"],
             "launches_per_prove": path["proves"][-1]["launches"][name],
+            "launches_by_path": {"square_chain": path["launches"][name],
+                                 "keccak": keccak["launches"][name],
+                                 "cli": cli["launches"][name]},
+            "launches_per_keccak_prove":
+                keccak["proves"][-1]["launches"][name],
+            **({"c_msm": r["c_msm"]} if "c_msm" in r else {}),
             **({"loop_ms": r["loop_ms"]} if "loop_ms" in r else {}),
         })
     log(f"[path] n=2^{log_n}: setup {path['setup_s']:.2f} s, prove "
         f"ms {[round(p['ms'], 1) for p in path['proves']]}")
+    ks = keccak["summary"]
+    log(f"[keccak] n=2^{ks['n'].bit_length() - 1}: setup "
+        f"{ks['setup_s']:.2f} s, prove ms "
+        f"{[round(t, 1) for t in ks['prove_ms']]}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

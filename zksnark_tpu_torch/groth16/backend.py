@@ -9,27 +9,12 @@ from __future__ import annotations
 
 from ..curve import bn254 as _c
 from ..field import params
-
-
-class ScalarField:
-    """The few Fr operations the verifier needs, on python ints."""
-
-    def __init__(self, p: int):
-        self.p = p
-
-    def one(self) -> int:
-        return 1
-
-    def from_int(self, x: int) -> int:
-        return x % self.p
-
-
-FR = ScalarField(params.R)
+from ..field.host import FR, PrimeField
 
 
 class BN254Backend:
     name = "bn254"
-    field = FR
+    field: PrimeField = FR
 
     def __init__(self):
         self._g1_base = _c.g1_scalar_mul(_c.G1_GEN, params.ENCRYPT_G1_SCALE)

@@ -1,5 +1,10 @@
-"""The device CRS carried between the JAX package and the port.
+"""The JAX package's interchange formats (version 1), in the port: the
+device CRS, proofs and witnesses, so that a file written by either
+package is read by the other.
 
+- `proof_to_json` / `witness_to_json` write the same text as the JAX
+  package's codecs (hex field elements; G1 = [x, y], G2 = [[x0, x1],
+  [y0, y1]], null = infinity).
 - `crs_from_jax_arrays` turns the arrays of a JAX `DeviceCRS` (numpy
   X/Y as (..., 32) float32 digits, Z as float32 or uint8 digits) and its
   host Sigma parts into the port's `DeviceCRS`: a re-chunk of the same
@@ -8,9 +13,8 @@
 - `device_crs_save` / `device_crs_load` read and write the JAX package's
   `.npz` checkpoint (format version 1: `zksnark_tpu/utils/
   serialization.py`), so a CRS saved by either package proves in the
-  other.  The host Sigma parts travel as the JSON of that format (hex
-  field elements; G1 = [x, y], G2 = [[x0, x1], [y0, y1]], null =
-  infinity), through the port's own copy of the codec.
+  other.  The host Sigma parts travel as the JSON of that format;
+  `host_crs_load` reads only them (what verify needs).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ..curve.field_ops import FQ2_OPS, FQ_OPS
 from ..curve.jacobian import JPoint
 from ..field.limb import limbs_from_jax_np, limbs_to_jax_np
 from ..groth16.prover import DeviceCRS
-from ..groth16.protocol import SigmaG1, SigmaG2
+from ..groth16.protocol import Proof, SigmaG1, SigmaG2
 
 FORMAT_VERSION = 1
 
@@ -52,6 +56,39 @@ def _dec_g2(v):
         return None
     return ((int(v[0][0], 16), int(v[0][1], 16)),
             (int(v[1][0], 16), int(v[1][1], 16)))
+
+
+def _check_version(d) -> None:
+    if d["version"] != FORMAT_VERSION:
+        raise ValueError(f"format version {d['version']} is not "
+                         f"{FORMAT_VERSION}")
+
+
+def proof_to_json(proof) -> str:
+    return json.dumps({
+        "version": FORMAT_VERSION,
+        "curve": "bn254",
+        "a": _enc_g1(proof.a),
+        "b": _enc_g2(proof.b),
+        "c": _enc_g1(proof.c),
+    })
+
+
+def proof_from_json(s: str) -> Proof:
+    d = json.loads(s)
+    _check_version(d)
+    return Proof(a=_dec_g1(d["a"]), b=_dec_g2(d["b"]), c=_dec_g1(d["c"]))
+
+
+def witness_to_json(weights) -> str:
+    return json.dumps({"version": FORMAT_VERSION,
+                       "weights": [hex(w) for w in weights]})
+
+
+def witness_from_json(s: str):
+    d = json.loads(s)
+    _check_version(d)
+    return [int(w, 16) for w in d["weights"]]
 
 
 def crs_to_json(sigmag1, sigmag2) -> str:
@@ -82,9 +119,7 @@ def crs_to_json(sigmag1, sigmag2) -> str:
 
 def crs_from_json(s: str):
     d = json.loads(s)
-    if d["version"] != FORMAT_VERSION:
-        raise ValueError(f"CRS format version {d['version']} is not "
-                         f"{FORMAT_VERSION}")
+    _check_version(d)
 
     def g1_list(v):
         return None if v is None else [_dec_g1(p) for p in v]
@@ -151,13 +186,19 @@ def device_crs_save(path: str, dcrs: DeviceCRS) -> None:
     )
 
 
+def host_crs_load(path: str):
+    """The host Sigma parts (SigmaG1, SigmaG2) of a checkpoint."""
+    with np.load(path) as f:
+        return crs_from_json(bytes(f["host_sigma"]).decode())
+
+
 @torch.inference_mode()
 def device_crs_load(path: str, device=None) -> DeviceCRS:
     """Load a checkpoint written by either package.  The point sets are
     re-normalized (Z in {0, one}) whatever wrote them, as the JAX loader
     does: the prover's mixed-add MSMs rely on it."""
+    sigmag1, sigmag2 = host_crs_load(path)
     f = np.load(path)
-    sigmag1, sigmag2 = crs_from_json(bytes(f["host_sigma"]).decode())
     crs = crs_from_jax_arrays(
         (f["xi_g1_x"], f["xi_g1_y"], f["xi_g1_z"]),
         (f["xi_t_x"], f["xi_t_y"], f["xi_t_z"]),
