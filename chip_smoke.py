@@ -51,7 +51,32 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 6. cli: `python -m zksnark_tpu_torch.cli` setup -> prove -> verify on
    `simple.zk`, one process per command (exit 0 each), and verify with a
    wrong public input (exit 1); setup and prove together must launch
-   every kernel entry but the elementwise double.
+   every kernel entry but the elementwise double.  The same four steps
+   through the host flow (`--backend host`), over BN254 and over Z251,
+   with the same exits, and `bench --backend host` (exit 0, one JSON
+   report).
+7. host: on `simple.zk`, the card's `device_setup` + `device_prove`
+   against the port's host `protocol.setup` + `prove` over the same
+   domain roots, trapdoor and blinding: the same proof JSON text, the
+   same CRS (its host parts, which check the 69 G1 / 96 G2 generator
+   scales, and its point sets), both proofs verified on [2, 34] and
+   rejected on [2, 35]; the Z251 mock backend accepts and rejects the
+   same way.
+8. field: `mont_inv` (Fr, Fq) on 2^16 random elements plus 0, 1 and
+   p - 1, bit-exact against its plain version on the card and equal to
+   pow(x, p - 2, p) on the host, zero to zero.
+9. poly_mul: at n = 2^20 (degrees < 2^19) bit-exact against its plain
+   version on the card; at n = 2^10 equal to the host `dense.mul`.
+10. msm_bits: `msm(..., scalar_bits=64)` over the path's 2^20 G1 CRS
+   points equal to the full MSM in affine form, with one bucket-scan
+   launch at W = 4 windows, and bit-exact against its plain version on
+   the card at the same shape (c = 16, W = 4).
+11. bench: `python -m zksnark_tpu_torch.bench --log-n 20 --repeats 2` in
+   its own process; its headline must parse, with a value > 0 and the
+   proof verified.
+Each of phases 5-11 resets the kernel launch counts just before what it
+drives and reads them just after (a process's own counts for the CLI and
+the bench); the kernels' JSON line gives them by path.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit (nvidia-smi), and {"ok": true, "device": {...}}.  Imports nothing of
@@ -61,6 +86,7 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -127,36 +153,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-
-
-# ---------------------------------------------------------------------------
-# the workload: a square chain w_{i+1} = w_i^2, one gate per step
-# ---------------------------------------------------------------------------
-
-def synthetic_square_chain(n_gates: int):
-    """Wires [unity, x (verify), t_1 .. t_n]; gate i: t_{i+1} = t_i^2.
-    Returns (R1CS, satisfied witness).  The JAX package's benchmark
-    circuit (`bench.py`)."""
-    from zksnark_tpu_torch.field import params
-    from zksnark_tpu_torch.frontend.r1cs import R1CS
-
-    num_wires = n_gates + 2
-    u = [[] for _ in range(num_wires)]
-    v = [[] for _ in range(num_wires)]
-    w = [[] for _ in range(num_wires)]
-    for g in range(1, n_gates + 1):
-        src = 1 if g == 1 else g
-        u[src].append((g, 1))
-        v[src].append((g, 1))
-        w[g + 1].append((g, 1))
-    r1cs = R1CS(u=u, v=v, w=w, roots=list(range(1, n_gates + 1)), input=1)
-    x = 3141592653
-    wit = [1, x]
-    cur = x
-    for _ in range(n_gates):
-        cur = cur * cur % params.R
-        wit.append(cur)
-    return r1cs, wit
 
 
 # ---------------------------------------------------------------------------
@@ -1131,6 +1127,7 @@ def diff(after: dict, before: dict) -> dict:
 def reference_phase(dev) -> None:
     """The same small circuit proved on the card and with the plain
     versions on the CPU: the proofs must be equal."""
+    from zksnark_tpu_torch.bench import synthetic_square_chain
     from zksnark_tpu_torch.groth16 import prover
 
     r1cs, wit = synthetic_square_chain((1 << 3) - 1)
@@ -1148,6 +1145,7 @@ def reference_phase(dev) -> None:
 
 
 def path_phase(dev, log_n: int, n_proves: int) -> dict:
+    from zksnark_tpu_torch.bench import synthetic_square_chain
     from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
     from zksnark_tpu_torch.curve import bn254 as hc
     from zksnark_tpu_torch.field import params
@@ -1351,14 +1349,14 @@ def keccak_phase(dev, n_bytes: int, n_proves: int) -> dict:
     return {"launches": total, "summary": summary, "proves": per_prove}
 
 
-# runs the CLI as `python -m zksnark_tpu_torch.cli` does (runpy), then
-# writes the kernel launches of its process to stderr
-CLI_SHIM = """import json, runpy, sys
+# runs a module as `python -m MODULE` does (runpy), then writes the kernel
+# launches of its process to stderr: python -c SHIM MODULE ARGS...
+MODULE_SHIM = """import json, runpy, sys
 from zksnark_tpu_torch.ops import curve_kernels, montmul, ntt
-sys.argv[0] = "zksnark_tpu_torch.cli"
+module = sys.argv.pop(1)
+sys.argv[0] = module
 try:
-    runpy.run_module("zksnark_tpu_torch.cli", run_name="__main__",
-                     alter_sys=True)
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
     code = 0
 except SystemExit as e:
     code = e.code
@@ -1369,12 +1367,33 @@ sys.exit(code)
 """
 
 
+def run_module(module: str, args: list, timeout: int):
+    """(completed process, its kernel launches) of `python -m module
+    args` from the checkout's root, through MODULE_SHIM."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    out = subprocess.run([sys.executable, "-c", MODULE_SHIM, module] + args,
+                         cwd=HERE, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    lines = [ln for ln in out.stderr.splitlines()
+             if ln.startswith("LAUNCHES ")]
+    if not lines:
+        raise SystemExit(f"{module}: no launch counts; stderr:\n"
+                         f"{out.stderr[-2000:]}")
+    return out, json.loads(lines[-1][len("LAUNCHES "):])
+
+
 def cli_phase() -> dict:
-    """The CLI on the card, one process per command as a user runs it:
-    setup -> prove (--check-witness) -> verify on `simple.zk`, each
-    exiting 0, and verify with a wrong public input exiting 1.  Each
-    process starts with its counts at 0; setup and prove together must
-    launch every kernel of the path."""
+    """The CLI, one process per command as a user runs it, on
+    `simple.zk`: the device flow on the card, setup -> prove
+    (--check-witness) -> verify, each exiting 0, and verify with a wrong
+    public input exiting 1; setup and prove together must launch every
+    kernel of the path.  Then the host flow (--backend host) over BN254
+    and over Z251 (--field z251) with the same four steps and exits, and
+    `bench --backend host`, which must exit 0 and print one JSON report.
+    Each process starts with its counts at 0."""
     # the CRS and proof files go to a scratch directory under the
     # gitignored build directory, removed afterwards
     build_dir = os.path.join(HERE, "zksnark_tpu_torch", "_build")
@@ -1383,50 +1402,436 @@ def cli_phase() -> dict:
         return _cli_steps(work)
 
 
+def _cli_run(label: str, args: list, want: int) -> tuple:
+    t0 = time.time()
+    out, launches = run_module("zksnark_tpu_torch.cli", args, 300)
+    said = out.stdout.strip().splitlines()
+    log(f"[cli] {label}: exit {out.returncode} "
+        f"({time.time() - t0:.1f} s): {said[-1] if said else ''}; "
+        f"launches {launches}")
+    if out.returncode != want:
+        raise SystemExit(f"cli {label} exited {out.returncode}, "
+                         f"expected {want}; stderr:\n{out.stderr[-2000:]}")
+    return out, launches
+
+
+def _flow(circ: str, crs: str, proof: str, extra: list) -> list:
+    return [
+        ("setup", ["setup", circ, "--crs", crs] + extra, 0),
+        ("prove", ["prove", circ, "--crs", crs, "--inputs", "3,2,4",
+                   "--proof", proof, "--check-witness"] + extra, 0),
+        ("verify [2, 34]", ["verify", circ, "--crs", crs, "--proof", proof,
+                            "--public", "2,34"] + extra, 0),
+        ("verify [2, 35]", ["verify", circ, "--crs", crs, "--proof", proof,
+                            "--public", "2,35"] + extra, 1),
+    ]
+
+
 def _cli_steps(work: str) -> dict:
     circ = os.path.join(HERE, "test_programs", "simple.zk")
-    crs = os.path.join(work, "crs.json")
-    proof = os.path.join(work, "proof.json")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                  if p])
-    steps = [
-        ("setup", ["setup", circ, "--crs", crs], 0),
-        ("prove", ["prove", circ, "--crs", crs, "--inputs", "3,2,4",
-                   "--proof", proof, "--check-witness"], 0),
-        ("verify [2, 34]", ["verify", circ, "--crs", crs, "--proof", proof,
-                            "--public", "2,34"], 0),
-        ("verify [2, 35]", ["verify", circ, "--crs", crs, "--proof", proof,
-                            "--public", "2,35"], 1),
-    ]
     total = {k: 0 for k in counts()}
-    for label, args, want in steps:
-        t0 = time.time()
-        out = subprocess.run([sys.executable, "-c", CLI_SHIM] + args,
-                             cwd=HERE, env=env, capture_output=True,
-                             text=True, timeout=300)
-        lines = [ln for ln in out.stderr.splitlines()
-                 if ln.startswith("LAUNCHES ")]
-        if not lines:
-            raise SystemExit(f"cli {label}: no launch counts; stderr:\n"
-                             f"{out.stderr[-2000:]}")
-        launches = json.loads(lines[-1][len("LAUNCHES "):])
-        said = out.stdout.strip().splitlines()
-        log(f"[cli] {label}: exit {out.returncode} "
-            f"({time.time() - t0:.1f} s): {said[-1] if said else ''}; "
-            f"launches {launches}")
-        if out.returncode != want:
-            raise SystemExit(f"cli {label} exited {out.returncode}, "
-                             f"expected {want}; stderr:\n"
-                             f"{out.stderr[-2000:]}")
+    for label, args, want in _flow(circ, os.path.join(work, "crs.json"),
+                                   os.path.join(work, "proof.json"), []):
+        _, launches = _cli_run(label, args, want)
         for k, v in launches.items():
             total[k] += v
     zero = [k for k, v in total.items() if v == 0 and k not in OFF_PATH]
     if zero:
         raise SystemExit(f"kernels never launched by the CLI: {zero}")
-    log(f"[cli] launches over its four processes: {total}")
+    log(f"[cli] launches over the device flow's four processes: {total}")
+
+    for field in ("bn254", "z251"):
+        extra = ["--backend", "host", "--field", field, "--trapdoor",
+                 "111,222,333,444,555"]
+        for label, args, want in _flow(
+                circ, os.path.join(work, f"host_{field}_crs.json"),
+                os.path.join(work, f"host_{field}_proof.json"), extra):
+            _, launches = _cli_run(f"host {field} {label}", args, want)
+            for k, v in launches.items():
+                total[k] += v
+    out, launches = _cli_run(
+        "bench --backend host", ["bench", circ, "--backend", "host",
+                                 "--inputs", "3,2,4", "--public", "2,34"], 0)
+    text = out.stdout
+    report = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    if set(report["phases_s"]) != {"setup", "prove", "verify"} or \
+            "verify: ACCEPT" not in text:
+        raise SystemExit(f"cli bench: unexpected report:\n{text}")
+    log(f"[cli] bench --backend host report: {json.dumps(report)}")
     return {"launches": total}
+
+
+# ---------------------------------------------------------------------------
+# the host tier, mont_inv, poly_mul, the bounded MSM and the bench
+# ---------------------------------------------------------------------------
+
+HOST_TRAPDOOR = (111, 222, 333, 444, 555)
+HOST_BLINDING = (7, 9)
+FIELD_N = 1 << 16                # random elements of the mont_inv check
+POLY_LOG_N = (20, 10)            # poly_mul: against plain, against dense
+BENCH_ARGS = ["--log-n", "20", "--repeats", "2"]
+
+
+def host_phase(dev) -> dict:
+    """The card against the host oracle on `simple.zk`: the port's host
+    `protocol.setup` + `prove` (dense-polynomial QAP over the device
+    domain's roots) and the card's `device_setup` + `device_prove` with
+    the same trapdoor and blinding must give the same proof JSON text,
+    and the host CRS the device CRS's host parts (alpha, beta, delta,
+    sum_gamma: the 69 G1 / 96 G2 generator scales) and point sets; both
+    proofs verify on [2, 34] and are rejected on [2, 35].  Then the same
+    circuit through the Z251 mock backend.  Counts are reset just before
+    the device setup and read after the device prove."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
+    from zksnark_tpu_torch.field.host import FR, Z251
+    from zksnark_tpu_torch.frontend import compiler, witness
+    from zksnark_tpu_torch.frontend.r1cs import R1CS
+    from zksnark_tpu_torch.groth16 import protocol, prover
+    from zksnark_tpu_torch.groth16.backend import BN254Backend, Z251Backend
+    from zksnark_tpu_torch.groth16.qap import from_r1cs
+    from zksnark_tpu_torch.utils import serialization as ser
+
+    stages: dict = {}
+
+    def timed(label, fn):
+        t0 = time.time()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        stages[label] = time.time() - t0
+        log(f"[host] {label}: {stages[label]:.3f} s")
+        return out
+
+    code = open(os.path.join(HERE, "test_programs", "simple.zk")).read()
+    r1cs = compiler.parse(code, FR)
+    w = witness.weights(code, [3, 2, 4], FR)
+    reset_counts()
+    dq = timed("compile_r1cs (card)", lambda: prover.compile_r1cs(
+        r1cs, device=dev))
+    dcrs = timed("device_setup (card)", lambda: prover.device_setup(
+        dq, trapdoor=HOST_TRAPDOOR))
+    dproof = timed("device_prove (card)", lambda: prover.device_prove(
+        dq, dcrs, w, blinding=HOST_BLINDING))
+    launches = counts()
+
+    roots = prover.domain_roots(dq.domain)
+    host_r1cs = R1CS(
+        u=[[(roots[ri - 1], v) for (ri, v) in row] for row in r1cs.u],
+        v=[[(roots[ri - 1], v) for (ri, v) in row] for row in r1cs.v],
+        w=[[(roots[ri - 1], v) for (ri, v) in row] for row in r1cs.w],
+        roots=roots, input=r1cs.input)
+    be = BN254Backend()
+    qap = timed("from_r1cs (host, Lagrange over the domain's roots)",
+                lambda: from_r1cs(FR, host_r1cs))
+    crs = timed("protocol.setup (host)", lambda: protocol.setup(
+        be, qap, trapdoor=HOST_TRAPDOOR))
+    hproof = timed("protocol.prove (host)", lambda: protocol.prove(
+        be, qap, crs, w, blinding=HOST_BLINDING))
+    same_proof = ser.proof_to_json(dproof) == ser.proof_to_json(hproof)
+    sg1, sg2 = crs
+    parts = {f: getattr(dcrs.sigmag1, f) == getattr(sg1, f)
+             for f in ("alpha", "beta", "delta", "sum_gamma")}
+    parts.update({f"g2 {f}": getattr(dcrs.sigmag2, f) == getattr(sg2, f)
+                  for f in ("beta", "gamma", "delta")})
+    xi2 = jac.to_affine_np(FQ2_OPS, dcrs.xi_g2)
+    parts.update({
+        "xi": list(jac.to_affine_np(FQ_OPS, dcrs.xi_g1)) == sg1.xi,
+        "xi_t": list(jac.to_affine_np(FQ_OPS, dcrs.xi_t_g1)) == sg1.xi_t,
+        "sum_delta": list(jac.to_affine_np(FQ_OPS, dcrs.sum_delta_g1))
+        == sg1.sum_delta,
+        "g2 xi": [tuple(map(tuple, p)) if p else None for p in xi2]
+        == sg2.xi})
+    dpair = (dcrs.sigmag1, dcrs.sigmag2)
+    verdicts = {
+        "device [2, 34]": protocol.verify(be, dpair, [2, 34], dproof),
+        "device [2, 35]": protocol.verify(be, dpair, [2, 35], dproof),
+        "host [2, 34]": protocol.verify(be, crs, [2, 34], hproof),
+        "host [2, 35]": protocol.verify(be, crs, [2, 35], hproof)}
+    log(f"[host] BN254 n={dq.n}: device proof JSON == host proof JSON: "
+        f"{same_proof}; CRS parts equal: {parts}; verify {verdicts}")
+    if not same_proof or not all(parts.values()):
+        raise SystemExit("host: the card's CRS or proof differs from the "
+                         "host protocol's")
+    if verdicts != {"device [2, 34]": True, "device [2, 35]": False,
+                    "host [2, 34]": True, "host [2, 35]": False}:
+        raise SystemExit(f"host: wrong verify verdicts {verdicts}")
+
+    zbe = Z251Backend()
+    zqap = timed("Z251 from_r1cs", lambda: from_r1cs(
+        Z251, compiler.parse(code, Z251)))
+    zw = witness.weights(code, [3, 2, 4], Z251)
+    zcrs = timed("Z251 setup", lambda: protocol.setup(
+        zbe, zqap, trapdoor=HOST_TRAPDOOR))
+    zproof = timed("Z251 prove", lambda: protocol.prove(
+        zbe, zqap, zcrs, zw, blinding=HOST_BLINDING))
+    zv = (protocol.verify(zbe, zcrs, [2, 34], zproof),
+          protocol.verify(zbe, zcrs, [2, 35], zproof))
+    log(f"[host] Z251: proof {ser.proof_to_json(zproof)}; verify [2, 34] "
+        f"{zv[0]}, [2, 35] {zv[1]}")
+    if zv != (True, False):
+        raise SystemExit(f"host: Z251 verify verdicts {zv}")
+    return {"launches": launches, "stages_s": stages}
+
+
+def field_phase(dev, seed: int) -> dict:
+    """mont_inv on the card, Fr and Fq: 2^16 random elements plus 0, 1
+    and p - 1, bit-exact against the plain version on the card and equal
+    to pow(x, p - 2, p) on the host (zero to zero).  Counts are reset
+    just before each field's first call and read after it."""
+    from zksnark_tpu_torch.field import limb
+    from zksnark_tpu_torch.field.limb import FQ_CTX, FR_CTX
+    from zksnark_tpu_torch.ops import montmul as mm
+
+    rng = np.random.default_rng(seed)
+    launches = {k: 0 for k in counts()}
+    out = {}
+    for ctx, name in ((FR_CTX, "fr"), (FQ_CTX, "fq")):
+        p = ctx.p
+        vals = [0, 1, p - 1] + list(rand_field(rng, p, (FIELD_N,)))
+        x = torch.from_numpy(ctx.to_mont_np(vals)).to(dev)
+        reset_counts()
+        got = mm.mont_inv(ctx, x)
+        torch.cuda.synchronize()
+        per_call = counts()
+        for k, v in per_call.items():
+            launches[k] += v
+        n_launch = per_call[f"montmul_{name}"]
+        want = limb.mont_inv(ctx, x)
+        err = limb_err(got, want)
+        host = ctx.from_mont_np(got.cpu().numpy())
+        host_ok = all(int(h) == pow(v, p - 2, p) for h, v in zip(host, vals))
+        zero_ok = int(host[0]) == 0 and not bool(got[0].any())
+        ms, _ = time_cuda(lambda: mm.mont_inv(ctx, x), 5)
+        plain_ms, _ = time_cuda(lambda: limb.mont_inv(ctx, x), 1)
+        wall, busy, _, _ = profiled(lambda: mm.mont_inv(ctx, x))
+        out[name] = {"n": len(vals), "launches_per_call": n_launch,
+                     "max_abs_err": err, "host_ok": host_ok,
+                     "zero_ok": zero_ok, "ms": ms, "plain_ms": plain_ms,
+                     "profiled_wall_ms": wall, "device_busy_ms": busy}
+        log(f"[field] mont_inv {name}: {len(vals)} elements, {n_launch} "
+            f"montmul launches per call, {ms:.3f} ms per call (plain "
+            f"{plain_ms:.1f} ms; one call profiled: wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms); max |kernel - plain| = {err}; "
+            f"pow(x, p-2) on the host {'ok' if host_ok else 'FAIL'}; 0 -> 0 "
+            f"{'ok' if zero_ok else 'FAIL'}")
+        bits = ctx.p_minus_2_bits
+        if dev.type == "cuda" and n_launch != len(bits) + sum(bits):
+            raise SystemExit(f"field: mont_inv {name} launched {n_launch} "
+                             f"products, expected {len(bits) + sum(bits)}")
+        if err or not host_ok or not zero_ok:
+            raise SystemExit(f"field: mont_inv {name} is wrong")
+    return {"launches": launches, "mont_inv": out}
+
+
+def _rand_limbs(dev, gen, n: int) -> torch.Tensor:
+    """n random canonical residues (< 2^252 < p) as limbs on the card."""
+    t = torch.randint(-(1 << 31), 1 << 31, (n, 8), dtype=torch.int64,
+                      device=dev, generator=gen)
+    t[:, 7] &= 0x0FFFFFFF
+    return t.to(torch.int32)
+
+
+def _poly_mul_plain(domain, a, b):
+    """`ntt.poly_mul` with the plain NTT passes and products."""
+    from zksnark_tpu_torch.field import limb
+    from zksnark_tpu_torch.ops import ntt
+
+    def fwd(x, tw):
+        return ntt.butterflies_plain(domain.ctx, domain.log_n, tw, x,
+                                     domain.widths)
+
+    prod = limb.mont_mul(domain.ctx, fwd(a, domain.t.tw_table),
+                         fwd(b, domain.t.tw_table))
+    return limb.mont_mul(domain.ctx, fwd(prod, domain.t.tw_table_inv),
+                         domain.t.n_inv_mont.unsqueeze(0))
+
+
+def poly_mul_phase(dev, seed: int) -> dict:
+    """`ntt.poly_mul` on the card: at n = 2^20, two random polynomials of
+    degree < 2^19, bit-exact against the plain version on the card; at
+    n = 2^10, two of degree < 2^9 against the host `dense.mul`.  Counts
+    are reset just before the 2^20 product and read after it."""
+    from zksnark_tpu_torch.field.host import FR
+    from zksnark_tpu_torch.field.limb import FR_CTX
+    from zksnark_tpu_torch.ops import ntt
+    from zksnark_tpu_torch.poly import dense
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    big, small_log = POLY_LOG_N
+    n = 1 << big
+    d20 = ntt.get_domain(big, dev)
+    zeros = torch.zeros((n // 2, 8), dtype=torch.int32, device=dev)
+    a = torch.cat([_rand_limbs(dev, gen, n // 2), zeros])
+    b = torch.cat([_rand_limbs(dev, gen, n // 2), zeros])
+    reset_counts()
+    got = ntt.poly_mul(d20, a, b)
+    torch.cuda.synchronize()
+    launches = counts()
+    ms, _ = time_cuda(lambda: ntt.poly_mul(d20, a, b), 10)
+    plain_ms, want = time_cuda(lambda: _poly_mul_plain(d20, a, b), 1)
+    err = limb_err(got, want)
+    log(f"[poly_mul] n=2^{big}, degrees < 2^{big - 1}: {ms:.3f} ms per "
+        f"product (plain {plain_ms:.1f} ms); launches {launches}; max "
+        f"|kernel - plain| = {err}")
+
+    rng = np.random.default_rng(seed)
+    m = 1 << small_log
+    pa = list(rand_field(rng, FR.p, (m // 2,))) + [0] * (m // 2)
+    pb = list(rand_field(rng, FR.p, (m // 2,))) + [0] * (m // 2)
+    d10 = ntt.get_domain(small_log, dev)
+    small = ntt.poly_mul(
+        d10, torch.from_numpy(FR_CTX.to_mont_np(pa)).to(dev),
+        torch.from_numpy(FR_CTX.to_mont_np(pb)).to(dev))
+    host = [int(v) for v in FR_CTX.from_mont_np(small.cpu().numpy())]
+    want_small = dense.mul(FR, pa, pb)
+    dense_ok = host == want_small + [0] * (m - len(want_small))
+    log(f"[poly_mul] n=2^{small_log}, degrees < 2^{small_log - 1}: equal "
+        f"to the host dense.mul: "
+        f"{dense_ok}")
+    if err or not dense_ok:
+        raise SystemExit("poly_mul: the card's product is wrong")
+    # three transforms, the pointwise product and the n^-1 product
+    want_l = {"ntt_fr": 3 * len(d20.widths), "montmul_fr": 2}
+    if dev.type == "cuda" and any(launches[k] != v for k, v in want_l.items()):
+        raise SystemExit(f"poly_mul launched {launches}, expected {want_l}")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err}
+
+
+@contextlib.contextmanager
+def point_ops_plain():
+    """Route every point op of `ops.curve_kernels` to its plain version on
+    CUDA tensors too, for the duration: the module's `_device` switch,
+    which each of its wrappers asks (madd, add, double and the chains
+    bucket_scan, add_scan, double_n, horner), answers "cpu".  It reroutes
+    nothing else: field products through `ops.montmul` and the NTT still
+    launch their kernels, so a caller checks the counts.  An MSM over
+    FQ_OPS (plain limb products) launches none."""
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    saved = ck._device
+    ck._device = lambda p, op: "cpu"
+    try:
+        yield
+    finally:
+        ck._device = saved
+
+
+def msm_bits_phase(dev, xi_g1, seed: int) -> dict:
+    """`msm(..., scalar_bits=64)` over 2^20 G1 CRS points (the path's
+    xi_g1) with 64-bit scalars: equal in affine form to the full
+    16-window MSM, with one bucket-scan launch at W = 4; and bit-exact
+    against its plain version on the card at the same shape.  Counts are
+    reset just before the bounded MSM and read after it."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.curve.field_ops import FQ_OPS
+    from zksnark_tpu_torch.ops import msm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = xi_g1.z.shape[0]
+    s = torch.zeros((n, 8), dtype=torch.int32, device=dev)
+    s[:, :2] = torch.randint(-(1 << 31), 1 << 31, (n, 2), dtype=torch.int64,
+                             device=dev, generator=gen).to(torch.int32)
+    c = msm.pick_window_bits(n)
+    n_win = msm._digit_columns(s[:1], c, 64).shape[0]
+    reset_counts()
+    got = msm.msm(FQ_OPS, xi_g1, s, scalar_bits=64, affine=True)
+    torch.cuda.synchronize()
+    launches = counts()
+    full = msm.msm(FQ_OPS, xi_g1, s, affine=True)
+    torch.cuda.synchronize()
+    full_launches = diff(counts(), launches)
+    same = jac.to_affine_np(FQ_OPS, got) == jac.to_affine_np(FQ_OPS, full)
+    ms, _ = time_cuda(lambda: msm.msm(FQ_OPS, xi_g1, s, scalar_bits=64,
+                                      affine=True), 5)
+    full_ms, _ = time_cuda(lambda: msm.msm(FQ_OPS, xi_g1, s, affine=True), 5)
+    breakdown = {}
+    for label, bound_bits in (("scalar_bits=64", 64), ("full", 0)):
+        wall, busy, rows, _ = profiled(lambda: msm.msm(
+            FQ_OPS, xi_g1, s, scalar_bits=bound_bits, affine=True))
+        breakdown[label] = {"wall_ms": wall, "device_busy_ms": busy,
+                            "top": [list(r) for r in rows[:8]]}
+        log(f"[msm_bits] {label} under the profiler: wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms; by kernel: " + "; ".join(
+                f"{k[:48]} {t:.3f} ms x{cnt}" for k, t, cnt in rows[:8]))
+    log(f"[msm_bits] n={n}, c={c}: scalar_bits=64 {ms:.3f} ms (W = "
+        f"{n_win}, bucket-scan launches {launches['bucket_scan_g1']}), full "
+        f"{full_ms:.3f} ms (W = {-(-256 // c)}, bucket-scan launches "
+        f"{full_launches['bucket_scan_g1']}); equal in affine form: {same}")
+
+    # the plain version at this path's own shape (2^20 points, c = 16,
+    # W = 4): the same MSM, points and scalars with every point op on its
+    # plain version; it must launch nothing and equal the kernels' result
+    # bit for bit, in raw Jacobian coordinates
+    reset_counts()
+    t0 = time.time()
+    with point_ops_plain():
+        plain = msm.msm(FQ_OPS, xi_g1, s, scalar_bits=64, affine=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    stray = {k: v for k, v in counts().items() if v}
+    err = max(limb_err(a, b) for a, b in zip(got, plain))
+    log(f"[msm_bits] n={n}, c={c}, W = {n_win}: max |kernel - plain| = "
+        f"{err} (plain on the card {plain_ms:.1f} ms, kernel launches in "
+        f"it {stray or 0})")
+    if not same or err or stray or n_win != -(-64 // c) or (
+            dev.type == "cuda" and launches["bucket_scan_g1"] != 1):
+        raise SystemExit("msm_bits: the bounded MSM is wrong")
+    return {"launches": launches, "ms": ms, "full_ms": full_ms,
+            "plain_ms": plain_ms, "windows": n_win,
+            "full_launches": full_launches, "max_abs_err": err,
+            "profile": breakdown}
+
+
+def bench_phase() -> dict:
+    """`python -m zksnark_tpu_torch.bench --log-n 20 --repeats 2` in its
+    own process: its last line must be the headline, with a value > 0,
+    and its details must say the proof verified."""
+    details = os.path.join(HERE, "chiprun_out", "bench_details.json")
+    t0 = time.time()
+    out, launches = run_module("zksnark_tpu_torch.bench",
+                               BENCH_ARGS + ["--details", details], 900)
+    wall = time.time() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise SystemExit(f"bench exited {out.returncode}; stderr:\n"
+                         f"{out.stderr[-3000:]}")
+    head = json.loads(lines[-1])
+    with open(details) as f:
+        det = json.load(f)
+    log(f"[bench] headline {lines[-1]}")
+    log(f"[bench] details {json.dumps(det)}")
+    log(f"[bench] process {wall:.1f} s; launches {launches}")
+    if not head.get("metric", "").startswith("groth16_prove_2^") or \
+            not head.get("value", 0) > 0 or det.get("proof_verified") is not True:
+        raise SystemExit("bench: no verified headline")
+    return {"launches": launches, "headline": head, "details": det}
+
+
+def profiled(fn) -> tuple:
+    """One call of `fn` under torch.profiler: (wall ms, ended by a
+    synchronize; device busy ms; (kernel name, device ms, count) rows by
+    device time; the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    # device activities only; "Command Buffer Full" is CUPTI's record of
+    # the host waiting for a full launch queue, not device work
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if "CUDA" in str(getattr(e, "device_type", ""))
+                   and not e.key.startswith("Command Buffer Full")),
+                  key=lambda r: -r[1])
+    return wall_ms, sum(r[1] for r in rows), rows, prof
 
 
 def profile_phase(dqap, crs, wit, table_path: str) -> None:
@@ -1434,8 +1839,6 @@ def profile_phase(dqap, crs, wit, table_path: str) -> None:
     in a synchronize), then one whole prove under torch.profiler (device
     time by kernel, and the device's idle share of the wall time).  The
     profiler's full table is written to `table_path`."""
-    from torch.profiler import ProfilerActivity, profile
-
     from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
     from zksnark_tpu_torch.field.limb import FR_CTX
     from zksnark_tpu_torch.groth16 import prover
@@ -1470,24 +1873,13 @@ def profile_phase(dqap, crs, wit, table_path: str) -> None:
     timed("msm G2 B (v)", lambda: msm.msm_windowed(FQ2_OPS, crs.xi_g2, v,
                                                     wb, True))
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.time()
-        prover.device_prove(dqap, crs, wit, blinding=(5, 6))
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    # device activities only; "Command Buffer Full" is CUPTI's record of
-    # the host waiting for a full launch queue, not device work
-    rows = [e for e in prof.key_averages()
-            if "CUDA" in str(getattr(e, "device_type", ""))
-            and not e.key.startswith("Command Buffer Full")]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    wall_ms, busy_ms, rows, prof = profiled(
+        lambda: prover.device_prove(dqap, crs, wit, blinding=(5, 6)))
     log(f"[profile] one prove under the profiler: wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
-            f"{e.count:6d}x  {e.key[:90]}")
+    for key, ms, count in rows[:12]:
+        log(f"[profile]   {ms:9.2f} ms {count:6d}x  {key[:90]}")
     os.makedirs(os.path.dirname(os.path.abspath(table_path)), exist_ok=True)
     with open(table_path, "w") as f:
         f.write(prof.key_averages().table(
@@ -1536,11 +1928,25 @@ def main(argv=None) -> int:
     if args.profile:
         profile_phase(*path["state"], args.profile)
     # free the square chain's circuit and CRS: the keccak path's peak
-    # memory is read without them
+    # memory is read without them; its 2^20 G1 points wait on the host
+    # for the bounded MSM
+    xi_g1_host = [a.cpu() for a in path["state"][1].xi_g1]
     del path["state"]
     torch.cuda.empty_cache()
     keccak = keccak_phase(dev, 4, 2)
     cli = cli_phase()
+    host = host_phase(dev)
+    field = field_phase(dev, SEED)
+    pmul = poly_mul_phase(dev, SEED)
+    from zksnark_tpu_torch.curve.jacobian import JPoint
+
+    bits = msm_bits_phase(dev, JPoint(*(a.to(dev) for a in xi_g1_host)),
+                          SEED)
+    del xi_g1_host
+    torch.cuda.empty_cache()
+    bench = bench_phase()
+    extra = {"host": host, "field": field, "poly_mul": pmul,
+             "msm_bits": bits, "bench": bench}
 
     kernels = []
     for name, r in results.items():
@@ -1556,9 +1962,11 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"],
             "launches_per_prove": path["proves"][-1]["launches"][name],
-            "launches_by_path": {"square_chain": path["launches"][name],
-                                 "keccak": keccak["launches"][name],
-                                 "cli": cli["launches"][name]},
+            "launches_by_path": {
+                "square_chain": path["launches"][name],
+                "keccak": keccak["launches"][name],
+                "cli": cli["launches"][name],
+                **{k: v["launches"][name] for k, v in extra.items()}},
             "launches_per_keccak_prove":
                 keccak["proves"][-1]["launches"][name],
             **({"c_msm": r["c_msm"]} if "c_msm" in r else {}),
@@ -1570,6 +1978,11 @@ def main(argv=None) -> int:
     log(f"[keccak] n=2^{ks['n'].bit_length() - 1}: setup "
         f"{ks['setup_s']:.2f} s, prove ms "
         f"{[round(t, 1) for t in ks['prove_ms']]}")
+    log(f"[field] mont_inv ms per 2^16 + 3 inverses: "
+        f"{ {k: round(v['ms'], 3) for k, v in field['mont_inv'].items()} }; "
+        f"[poly_mul] 2^20 {pmul['ms']:.3f} ms; [msm_bits] 2^20 "
+        f"{bits['ms']:.3f} ms (W = 4) vs {bits['full_ms']:.3f} ms (W = 16); "
+        f"[bench] {json.dumps(bench['headline'])}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

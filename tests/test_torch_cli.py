@@ -10,11 +10,16 @@ of the kernels) and the pinned trapdoor of `tests/test_torch_prover.py`:
   port's CLI accepts the JAX CLI's proof; a wrong `--public` exits 1;
 - `--check-witness` on a witness that violates a gate exits 3;
 - `proof_to_json` / `witness_to_json` write the JAX codecs' text;
-- without a card and without `--device cpu` the CLI exits non-zero, and
-  it refuses what is not ported (`bench`, `--backend host`, `--field z251`
-  beyond compile) with an argparse error.
+- without a card and without `--device cpu` the CLI exits non-zero;
+- `--backend host` setup -> prove -> verify over BN254 and Z251 exits 0,
+  0, 0 and 1 on a wrong input, its JSON CRS is the JAX CLI's text for
+  the same --trapdoor, and each CLI accepts the other's host proof;
+- `bench --backend host` prints one JSON report; `bench` and `--field
+  z251` with `--backend device` exit 2.
 Tolerance: exact equality.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -159,13 +164,70 @@ def test_no_card_exits_nonzero(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("args,missing", [
-    (["bench", SIMPLE], "bench is not ported"),
-    (["setup", SIMPLE, "--backend", "host"], "--backend host is not ported"),
-    (["setup", SIMPLE, "--field", "z251"], "--field z251 is not ported"),
-])
-def test_unported_options_are_refused(args, missing, capsys):
+HOST_CASES = {"bn254": ("2,34", "2,35"), "z251": ("2,34", "2,35")}
+
+
+@pytest.mark.parametrize("field", sorted(HOST_CASES))
+def test_host_flow_exit_codes(field, tmp_path, capsys):
+    """--backend host: setup -> prove -> verify exit 0, 0, 0 and a wrong
+    public input exits 1; the JSON CRS is read back by the JAX codec."""
+    crs, proof = str(tmp_path / "crs.json"), str(tmp_path / "proof.json")
+    common = ["--backend", "host", "--field", field, "--crs", crs]
+    good, bad = HOST_CASES[field]
+    assert cli.main(["setup", SIMPLE, "--trapdoor", TD] + common) == 0
+    assert cli.main(["prove", SIMPLE, "--inputs", "3,2,4", "--proof", proof,
+                     "--check-witness"] + common) == 0
+    assert cli.main(["verify", SIMPLE, "--proof", proof, "--public", good]
+                    + common) == 0
+    assert "ACCEPT" in capsys.readouterr().out
+    assert cli.main(["verify", SIMPLE, "--proof", proof, "--public", bad]
+                    + common) == 1
+    assert "REJECT" in capsys.readouterr().out
+    text = open(crs).read()
+    assert jser.crs_to_json(*jser.crs_from_json(text)) == text
+
+
+@pytest.mark.parametrize("field", sorted(HOST_CASES))
+def test_host_json_equals_jax_cli(field, tmp_path):
+    """The same --trapdoor gives the JAX CLI's CRS text; each CLI accepts
+    the other's proof (the host prove draws its own blinding)."""
+    mine, theirs = str(tmp_path / "crs.json"), str(tmp_path / "jcrs.json")
+    proof, jproof = str(tmp_path / "p.json"), str(tmp_path / "jp.json")
+    common = ["--backend", "host", "--field", field]
+    assert cli.main(["setup", SIMPLE, "--crs", mine, "--trapdoor", TD]
+                    + common) == 0
+    assert jcli.main(["setup", SIMPLE, "--crs", theirs, "--trapdoor", TD]
+                     + common) == 0
+    assert open(mine).read() == open(theirs).read()
+    assert cli.main(["prove", SIMPLE, "--crs", mine, "--inputs", "3,2,4",
+                     "--proof", proof] + common) == 0
+    assert jcli.main(["prove", SIMPLE, "--crs", theirs, "--inputs",
+                      "3,2,4", "--proof", jproof] + common) == 0
+    good = HOST_CASES[field][0]
+    assert jcli.main(["verify", SIMPLE, "--crs", theirs, "--proof", proof,
+                      "--public", good] + common) == 0
+    assert cli.main(["verify", SIMPLE, "--crs", mine, "--proof", jproof,
+                     "--public", good] + common) == 0
+
+
+def test_bench_host_prints_a_report(capsys):
+    assert cli.main(["bench", SIMPLE, "--backend", "host", "--field", "z251",
+                     "--trapdoor", TD, "--inputs", "3,2,4",
+                     "--public", "2,34"]) == 0
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    assert set(report["phases_s"]) == {"setup", "prove", "verify"}
+    assert out.strip().endswith("verify: ACCEPT")
+
+
+def test_bench_device_exits_2(capsys):
+    assert _port("bench", SIMPLE) == 2
+    assert "--backend host" in capsys.readouterr().err
+
+
+def test_device_z251_exits_2(capsys):
     with pytest.raises(SystemExit) as e:
-        _port(*args)
+        _port("setup", SIMPLE, "--field", "z251")
     assert e.value.code == 2
-    assert missing in capsys.readouterr().err
+    assert "--backend device requires --field bn254" in \
+        capsys.readouterr().err

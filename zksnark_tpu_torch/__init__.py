@@ -6,7 +6,9 @@ Layout (each module is the counterpart of the JAX package's module of the
 same path):
 
   field/     host prime fields (FR, FQ, Z251), params, limbs and the
-             plain Montgomery arithmetic
+             plain Montgomery arithmetic (product, power, inverse)
+  poly/      dense coefficient polynomials (the host QAP's, and the
+             NTT's oracle)
   frontend/  the .zk lexer / parser, compiler, witness interpreter, the
              legacy format, R1CS
   builder/   the imperative circuit builder: gates, words, comparators,
@@ -14,10 +16,12 @@ same path):
   csrc/      CUDA sources: the field header, K1 montmul, K2-K4 point ops
   ops/       montmul (K1), curve_kernels (K2-K4), ntt, scans, msm
   curve/     field_ops, jacobian, bn254 (host), native (host pairing)
-  groth16/   prover (setup / prove), protocol (verify), backend
+  groth16/   prover (device setup / prove), qap and protocol (host
+             setup / prove / verify), backend (BN254, the Z251 mock)
   utils/     serialization (the JAX package's CRS, proof and witness
-             formats), keccak_host
-  cli.py     compile / setup / prove / verify on .zk files
+             formats), keccak_host, profiling
+  cli.py     compile / setup / prove / verify / bench on .zk files
+  bench.py   the groth16_prove_2^20 headline on the card
   examples/  keccak_proof: a Keccak-256 preimage proof at n = 2^18
 
 Entry points run on the CUDA card unless the caller passes
@@ -29,6 +33,10 @@ from .field.host import FQ, FR, Z251, PrimeField  # noqa: F401
 from .frontend import ast, compiler, legacy, witness  # noqa: F401
 from .frontend.r1cs import R1CS  # noqa: F401
 from .frontend.witness import weights  # noqa: F401
+from .groth16 import backend, protocol, qap  # noqa: F401
+from .groth16.backend import BN254Backend, Z251Backend  # noqa: F401
+from .groth16.protocol import Proof, SigmaG1, SigmaG2, prove, setup, verify  # noqa: F401
+from .groth16.qap import QAP, from_r1cs  # noqa: F401
 
 
 def parse_zk(code: str, field=None) -> R1CS:

@@ -1,7 +1,7 @@
-"""Command-line interface: compile / setup / prove / verify a .zk circuit on
-the card.
+"""Command-line interface: compile / setup / prove / verify / bench on .zk
+circuits.
 
-The port's counterpart of `zksnark_tpu/cli.py` over its device flow:
+The port's counterpart of `zksnark_tpu/cli.py`, with both of its flows:
 
     python -m zksnark_tpu_torch.cli compile circuit.zk
     python -m zksnark_tpu_torch.cli setup   circuit.zk --crs crs.json
@@ -9,19 +9,23 @@ The port's counterpart of `zksnark_tpu/cli.py` over its device flow:
         --inputs 3,2,4 --proof proof.json
     python -m zksnark_tpu_torch.cli verify  circuit.zk --crs crs.json \\
         --proof proof.json --public 2,34
+    python -m zksnark_tpu_torch.cli bench   circuit.zk --backend host \\
+        --inputs 3,2,4 --public 2,34
 
-The CRS is the JAX package's `.npz` checkpoint, next to --crs (crs.json ->
-crs.json.npz), and the proof its JSON, so either package's CLI reads the
-other's files.  A `.zk` file is read by the lisp-esque parser when it
-starts with "(", else by the legacy line parser.  Exit codes: 0 accept
-(or done), 1 reject, 3 the witness violates a constraint
-(--check-witness).
+--backend device (the default here; the JAX CLI's default is host) runs
+the device prover on the CUDA card: the CRS is the JAX package's `.npz`
+checkpoint next to --crs (crs.json -> crs.json.npz); `--device cpu` runs
+the plain PyTorch versions of the kernels instead (for tests).  It needs
+--field bn254, and it has no `bench` (exit 2: the device prover's
+benchmark is `python -m zksnark_tpu_torch.bench`).  --backend host runs
+the host protocol over the dense-polynomial QAP on the CPU, no kernel
+involved, with the JSON CRS at --crs; --field z251 picks the mock
+backend there, and `bench` times its setup / prove / verify.
 
-It runs on the CUDA card; `--device cpu` runs the plain PyTorch versions
-of the kernels instead (for tests).  Not ported yet, and refused: the host
-flow (`--backend host`), the Z251 mock backend (`--field z251` beyond
-`compile`) and `bench`, which need the host protocol setup / prove, the
-QAP and the dense polynomials.
+Either package's CLI reads the other's files.  A `.zk` file is read by
+the lisp-esque parser when it starts with "(", else by the legacy line
+parser.  Exit codes: 0 accept (or done), 1 reject, 2 a usage error or no
+card, 3 the witness violates a constraint (--check-witness).
 """
 
 from __future__ import annotations
@@ -71,20 +75,17 @@ def main(argv=None) -> int:
                     "before proving (exit 3 if not)")
     args = ap.parse_args(argv)
 
-    if args.command == "bench":
-        ap.error("bench is not ported: it times the host protocol setup / "
-                 "prove, which need groth16/qap.py and poly/dense.py")
-    if args.backend == "host":
-        ap.error("--backend host is not ported: it needs the host protocol "
-                 "setup / prove, groth16/qap.py and poly/dense.py")
-    if args.field == "z251" and args.command != "compile":
-        ap.error("--field z251 is not ported beyond compile: it needs the "
-                 "Z251 mock backend and the host protocol")
-
-    try:
-        dev = _device.resolve_device(args.device)
-    except RuntimeError as e:
-        ap.exit(2, f"{e}\n")
+    dev = None
+    if args.backend == "device":
+        if args.command == "bench":
+            print("bench times the host protocol (--backend host); the "
+                  "device prover's benchmark is python -m "
+                  "zksnark_tpu_torch.bench", file=sys.stderr)
+            return 2
+        try:
+            dev = _device.resolve_device(args.device)
+        except RuntimeError as e:
+            ap.exit(2, f"{e}\n")
 
     from .field.host import FR, Z251
 
@@ -95,10 +96,91 @@ def main(argv=None) -> int:
         print(f"wires={r1cs.num_wires} gates={r1cs.num_gates} "
               f"verify_wires={r1cs.input}")
         return 0
-    return _device_flow(args, r1cs, code, field, dev)
+
+    trapdoor = tuple(_parse_ints(args.trapdoor)) or None
+    if args.backend == "device":
+        if args.field != "bn254":
+            ap.error("--backend device requires --field bn254")
+        return _device_flow(args, r1cs, code, field, dev, trapdoor)
+    return _host_flow(args, r1cs, code, field, trapdoor)
 
 
-def _device_flow(args, r1cs, code, field, dev) -> int:
+def _witness(args, r1cs, code, field):
+    """The witness of --inputs, or None when --check-witness finds a
+    violated gate (after printing them)."""
+    from .frontend.witness import weights as mk_weights
+
+    w = mk_weights(code, _parse_ints(args.inputs), field)
+    if args.check_witness:
+        bad = r1cs.check_satisfied(w, field.p)
+        if bad:
+            print(f"prove: witness violates {len(bad)} constraint(s) "
+                  f"at roots {bad[:8]}{'...' if len(bad) > 8 else ''}")
+            return None
+    return w
+
+
+def _host_flow(args, r1cs, code, field, trapdoor) -> int:
+    """setup / prove / verify / bench through the host protocol (JSON
+    CRS)."""
+    from .groth16 import protocol
+    from .groth16.backend import BN254Backend, Z251Backend
+    from .groth16.qap import from_r1cs
+    from .utils import serialization as ser
+
+    be = {"bn254": BN254Backend, "z251": Z251Backend}[args.field]()
+    qap = from_r1cs(field, r1cs)
+
+    if args.command == "setup":
+        t0 = time.time()
+        crs = protocol.setup(be, qap, trapdoor=trapdoor)
+        open(args.crs, "w").write(ser.crs_to_json(*crs))
+        print(f"setup: wrote {args.crs} ({time.time() - t0:.2f}s)")
+        return 0
+
+    if args.command == "prove":
+        crs = ser.crs_from_json(open(args.crs).read())
+        w = _witness(args, r1cs, code, field)
+        if w is None:
+            return 3
+        t0 = time.time()
+        proof = protocol.prove(be, qap, crs, w)
+        open(args.proof, "w").write(ser.proof_to_json(proof))
+        print(f"prove: wrote {args.proof} ({time.time() - t0:.2f}s)")
+        return 0
+
+    if args.command == "verify":
+        crs = ser.crs_from_json(open(args.crs).read())
+        proof = ser.proof_from_json(open(args.proof).read())
+        t0 = time.time()
+        ok = protocol.verify(be, crs, _parse_ints(args.public), proof)
+        print(f"verify: {'ACCEPT' if ok else 'REJECT'} "
+              f"({time.time() - t0:.2f}s)")
+        return 0 if ok else 1
+
+    # bench
+    from .frontend.witness import weights as mk_weights
+    from .utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    with timer.phase("setup"):
+        crs = protocol.setup(be, qap, trapdoor=trapdoor)
+    inputs = _parse_ints(args.inputs) or None
+    if inputs is None:
+        print("bench: no --inputs given; timing setup only")
+        print(timer.report())
+        return 0
+    w = mk_weights(code, inputs, field)
+    with timer.phase("prove"):
+        proof = protocol.prove(be, qap, crs, w)
+    with timer.phase("verify"):
+        ok = protocol.verify(be, crs, _parse_ints(args.public), proof)
+    print(timer.report())
+    print(f"verify: {'ACCEPT' if ok else 'REJECT'}")
+    return 0
+
+
+def _device_flow(args, r1cs, code, field, dev, trapdoor) -> int:
     """setup / prove / verify through the device prover."""
     from .groth16 import protocol, prover
     from .groth16.backend import BN254Backend
@@ -118,7 +200,6 @@ def _device_flow(args, r1cs, code, field, dev) -> int:
 
     if args.command == "setup":
         dqap = prover.compile_r1cs(r1cs, device=dev)
-        trapdoor = tuple(_parse_ints(args.trapdoor)) or None
         t0 = time.time()
         dcrs = prover.device_setup(dqap, trapdoor=trapdoor)
         ser.device_crs_save(npz, dcrs)
@@ -126,15 +207,9 @@ def _device_flow(args, r1cs, code, field, dev) -> int:
         return 0
 
     # prove: the witness (and its check) first, then the device
-    from .frontend.witness import weights as mk_weights
-
-    w = mk_weights(code, _parse_ints(args.inputs), field)
-    if args.check_witness:
-        bad = r1cs.check_satisfied(w, field.p)
-        if bad:
-            print(f"prove: witness violates {len(bad)} constraint(s) "
-                  f"at roots {bad[:8]}{'...' if len(bad) > 8 else ''}")
-            return 3
+    w = _witness(args, r1cs, code, field)
+    if w is None:
+        return 3
     dqap = prover.compile_r1cs(r1cs, device=dev)
     dcrs = ser.device_crs_load(npz, device=dev)
     t0 = time.time()

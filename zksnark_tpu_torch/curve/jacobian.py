@@ -35,6 +35,10 @@ def from_affine(ops, x, y) -> JPoint:
                                 x.device))
 
 
+def is_infinity(ops, p: JPoint) -> torch.Tensor:
+    return ops.is_zero(p.z)
+
+
 def select(ops, mask, a: JPoint, b: JPoint) -> JPoint:
     """mask ? a : b (mask shape = batch shape)."""
     return JPoint(ops.select(mask, a.x, b.x), ops.select(mask, a.y, b.y),

@@ -61,6 +61,8 @@ class MontCtx:
         self.r_int = r_mod
         self.n0 = n0          # -p^-1 mod 2^32, the CUDA kernels' constant
         self.nprime_int = (-pow(p, -1, params.MONT_R)) % params.MONT_R
+        # exponent bits of p - 2, MSB first: Fermat inversion's ladder
+        self.p_minus_2_bits = tuple(int(b) for b in bin(p - 2)[2:])
         self._np = {
             "p": _limbs_np(p),
             "one": _limbs_np(r_mod),                      # Montgomery one
@@ -83,6 +85,10 @@ class MontCtx:
             hit = torch.from_numpy(self._np[name]).to(device)
             self._dev[key] = hit
         return hit
+
+    def one_mont(self, shape=(), device="cpu") -> torch.Tensor:
+        """The Montgomery one, broadcast to `shape`."""
+        return self.const("one", device).expand(tuple(shape) + (L,))
 
     # -- host codecs ---------------------------------------------------------
     def to_limbs_np(self, xs) -> np.ndarray:
@@ -274,6 +280,10 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
     return (a == 0).all(-1)
 
 
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).all(-1)
+
+
 def mont_mul(ctx: MontCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a*b*R^-1 mod p (separated operand scanning on
     16-bit digits; see the module docstring for the bounds)."""
@@ -297,6 +307,31 @@ def mont_mul(ctx: MontCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     res = s[..., 2 * L:]                              # (t + mp) / R < 2p
     d, ge = _resolve(res + ctx.const("pcomp16", dev), 16)
     return _from16(torch.where(ge.unsqueeze(-1).bool(), d, res))
+
+
+def mont_sqr(ctx: MontCtx, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(ctx, a, a)
+
+
+def mont_pow_fixed(ctx: MontCtx, a: torch.Tensor, exp_bits,
+                   mul=mont_mul) -> torch.Tensor:
+    """a^e for a fixed exponent given by its bits, MSB first (Montgomery
+    in and out): the JAX package's square-and-multiply ladder, acc =
+    acc^2, then acc * a where the bit is set.  The exponent is known on
+    the host, so the bit picks the next product instead of a select:
+    one `mul` per step and one more per set bit."""
+    acc = ctx.one_mont(a.shape[:-1], a.device)
+    for bit in exp_bits:
+        acc = mul(ctx, acc, acc)
+        if int(bit):
+            acc = mul(ctx, acc, a)
+    return acc
+
+
+def mont_inv(ctx: MontCtx, a: torch.Tensor, mul=mont_mul) -> torch.Tensor:
+    """Batched inversion by Fermat, a^(p-2) (Montgomery in and out).
+    Zero maps to zero."""
+    return mont_pow_fixed(ctx, a, ctx.p_minus_2_bits, mul)
 
 
 def to_mont(ctx: MontCtx, a: torch.Tensor) -> torch.Tensor:

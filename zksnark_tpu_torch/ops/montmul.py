@@ -5,6 +5,9 @@ Counterpart of `zksnark_tpu/ops/montmul.py` (`mont_mul_pallas`,
 `mont_mul_auto`, `from_mont_auto`).  `mont_mul` broadcasts its operands,
 flattens them to (N, 8) and launches one thread per product on a CUDA
 tensor; on a CPU tensor it runs the plain version (`field.limb.mont_mul`).
+`mont_sqr`, `mont_pow_fixed` and `mont_inv` are the ladders of
+`field.limb` on top of it: on a CUDA tensor each step is one launch
+(`mont_inv`: 254 squarings and 127 products over Fr, 110 over Fq).
 """
 
 from __future__ import annotations
@@ -70,3 +73,19 @@ def mont_mul(ctx: MontCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def from_mont(ctx: MontCtx, a: torch.Tensor) -> torch.Tensor:
     """Montgomery -> standard form (a product with the plain 1)."""
     return mont_mul(ctx, a, ctx.const("std_one", a.device))
+
+
+def mont_sqr(ctx: MontCtx, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(ctx, a, a)
+
+
+def mont_pow_fixed(ctx: MontCtx, a: torch.Tensor, exp_bits) -> torch.Tensor:
+    """a^e for fixed exponent bits, MSB first (`field.limb.mont_pow_fixed`
+    with each product on the kernel)."""
+    return limb.mont_pow_fixed(ctx, a, exp_bits, mont_mul)
+
+
+def mont_inv(ctx: MontCtx, a: torch.Tensor) -> torch.Tensor:
+    """a^(p-2) for every element (Montgomery in and out); zero maps to
+    zero."""
+    return limb.mont_inv(ctx, a, mont_mul)

@@ -123,11 +123,17 @@ def batch_scalar_mul(ops, pts: JPoint, scalar_limbs: torch.Tensor) -> JPoint:
     return acc
 
 
-def _digit_columns(scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
+def _digit_columns(scalar_limbs: torch.Tensor, c: int,
+                   scalar_bits: int = 0) -> torch.Tensor:
     """(N, 8) u32-limb scalars -> (n_windows, N) int64 c-bit window
-    columns, LSB window first (a window may straddle two limbs)."""
+    columns, LSB window first (a window may straddle two limbs).
+
+    scalar_bits > 0 bounds the scalars: only the ceil(min(scalar_bits,
+    256) / c) low windows are built (a scalar at or above 2^scalar_bits
+    loses its high windows)."""
     words = scalar_limbs.to(torch.int64) & 0xFFFFFFFF
-    n_win = -(-32 * L // c)
+    n_bits = min(scalar_bits, 32 * L) if scalar_bits > 0 else 32 * L
+    n_win = -(-n_bits // c)
     mask = (1 << c) - 1
     cols = []
     for w in range(n_win):
@@ -201,28 +207,33 @@ def _bucket_windows_sorted(ops, pts: JPoint, order: torch.Tensor,
 
 
 def window_sums(ops, pts: JPoint, scalar_limbs: torch.Tensor,
-                window_bits: int, affine: bool = False) -> JPoint:
+                window_bits: int, affine: bool = False,
+                scalar_bits: int = 0) -> JPoint:
     """The (W,) window sums of Pippenger over exactly these N points, LSB
-    window first: what the Horner tail combines."""
-    digit_cols = _digit_columns(scalar_limbs, window_bits)   # (W, N)
+    window first: what the Horner tail combines.  W = ceil(256 / c), or
+    ceil(scalar_bits / c) under a bound (`_digit_columns`)."""
+    digit_cols = _digit_columns(scalar_limbs, window_bits,
+                                scalar_bits)                 # (W, N)
     d_sorted, order = torch.sort(digit_cols, dim=1)
     return _bucket_windows_sorted(
         ops, pts, order, d_sorted, 1 << window_bits, affine)
 
 
 def msm_windowed(ops, pts: JPoint, scalar_limbs: torch.Tensor,
-                 window_bits: int, affine: bool = False) -> JPoint:
+                 window_bits: int, affine: bool = False,
+                 scalar_bits: int = 0) -> JPoint:
     """Pippenger over exactly these N points (no padding)."""
     # Horner across windows, MSB window first: acc = 2^c * acc + W_w
     return ck.horner(ops, window_sums(ops, pts, scalar_limbs, window_bits,
-                                      affine), window_bits)
+                                      affine, scalar_bits), window_bits)
 
 
 def msm_windowed_batch(ops, jobs, window_bits: int,
                        affine: bool = False) -> list:
     """`msm_windowed` of each (points, scalars) job, the jobs' Horner
     tails side by side in one `horner` call (the window sums of each job
-    are computed one job at a time)."""
+    are computed one job at a time).  The JAX package's
+    `_msm_windowed_many` computes the same results."""
     sums = [window_sums(ops, p, s, window_bits, affine) for p, s in jobs]
     out = ck.horner(ops, JPoint(*(torch.stack(c, dim=1)
                                   for c in zip(*sums))), window_bits)
@@ -237,14 +248,21 @@ def pick_window_bits(n: int) -> int:
 
 @torch.inference_mode()
 def msm(ops, pts: JPoint, scalar_limbs: torch.Tensor,
-        window_bits: int = 0, affine: bool = False) -> JPoint:
+        window_bits: int = 0, affine: bool = False,
+        scalar_bits: int = 0) -> JPoint:
     """Pippenger MSM: the single point sum_i s_i * P_i.
 
     pts: JPoint batch of N points; scalar_limbs: (N, 8) standard form.
     N is padded to the next power of two (>= 64) with infinity / zero
     terms, as in the JAX package.  affine=True asserts every Z is 0 or
     one (the batch_normalize invariant) and runs the bucket scans on the
-    mixed-add kernel."""
+    mixed-add kernel.
+
+    scalar_bits > 0 is a bound the caller guarantees: every scalar is
+    < 2^scalar_bits.  Only the windows below it are built, scanned and
+    folded (the bucket scan and Horner run with W = ceil(scalar_bits /
+    c)); a scalar above the bound loses its high windows and the result
+    is WRONG, as in the JAX package.  Leave 0 for general scalars."""
     n = pts.z.shape[0]
     m = max(64, 1 << (n - 1).bit_length())
     if m != n:
@@ -253,7 +271,8 @@ def msm(ops, pts: JPoint, scalar_limbs: torch.Tensor,
             (m - n, L))])
     if window_bits == 0:
         window_bits = pick_window_bits(m)
-    return msm_windowed(ops, pts, scalar_limbs, window_bits, affine)
+    return msm_windowed(ops, pts, scalar_limbs, window_bits, affine,
+                        scalar_bits)
 
 
 @torch.inference_mode()

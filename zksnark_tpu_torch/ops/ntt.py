@@ -233,6 +233,17 @@ def coset_intt(domain: Domain, evals: torch.Tensor,
     return mont_mul(domain.ctx, intt(domain, evals), coset_pows_inv)
 
 
+def poly_mul(domain: Domain, a: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    """The product of two coefficient vectors (n, 8), Montgomery in and
+    out: two forward transforms, one pointwise product and one inverse
+    transform.  The sum of the degrees must be < n (the product wraps
+    around mod x^n - 1 otherwise)."""
+    ea = ntt(domain, a)
+    eb = ntt(domain, b)
+    return intt(domain, mont_mul(domain.ctx, ea, eb))
+
+
 def divide_by_vanishing(domain: Domain, u_c: torch.Tensor,
                         v_c: torch.Tensor, w_c: torch.Tensor
                         ) -> torch.Tensor:

@@ -2,9 +2,10 @@
 device CRS, proofs and witnesses, so that a file written by either
 package is read by the other.
 
-- `proof_to_json` / `witness_to_json` write the same text as the JAX
-  package's codecs (hex field elements; G1 = [x, y], G2 = [[x0, x1],
-  [y0, y1]], null = infinity).
+- `proof_to_json` / `crs_to_json` / `witness_to_json` write the same
+  text as the JAX package's codecs (hex field elements; G1 = [x, y], G2
+  = [[x0, x1], [y0, y1]], null = infinity; a Z251 mock point is one hex
+  int).
 - `crs_from_jax_arrays` turns the arrays of a JAX `DeviceCRS` (numpy
   X/Y as (..., 32) float32 digits, Z as float32 or uint8 digits) and its
   host Sigma parts into the port's `DeviceCRS`: a re-chunk of the same
@@ -37,16 +38,27 @@ FORMAT_VERSION = 1
 
 
 def _enc_g1(p) -> Optional[object]:
-    return None if p is None else [hex(p[0]), hex(p[1])]
+    """G1 affine (x, y), or a plain int for the Z251 mock backend."""
+    if p is None:
+        return None
+    if isinstance(p, int):
+        return hex(p)
+    return [hex(p[0]), hex(p[1])]
 
 
 def _dec_g1(v):
-    return None if v is None else (int(v[0], 16), int(v[1], 16))
+    if v is None:
+        return None
+    if isinstance(v, str):
+        return int(v, 16)
+    return (int(v[0], 16), int(v[1], 16))
 
 
 def _enc_g2(p) -> Optional[object]:
     if p is None:
         return None
+    if isinstance(p, int):
+        return hex(p)
     (x0, x1), (y0, y1) = p
     return [[hex(x0), hex(x1)], [hex(y0), hex(y1)]]
 
@@ -54,6 +66,8 @@ def _enc_g2(p) -> Optional[object]:
 def _dec_g2(v):
     if v is None:
         return None
+    if isinstance(v, str):
+        return int(v, 16)
     return ((int(v[0][0], 16), int(v[0][1], 16)),
             (int(v[1][0], 16), int(v[1][1], 16)))
 
