@@ -37,7 +37,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    on its public input x and be rejected on x + 1.  The kernel launch
    counts are reset just before setup and read after it and after each
    prove; every kernel entry of the path must have launched (all but the
-   elementwise double, whose chains now run in double_n and horner), and
+   elementwise double, whose chains now run in double_n and horner, and
+   the batched NTT, which only the mesh path runs), and
    each prove must launch the bucket scan once per MSM (four G1, one
    G2), the elementwise madd not at all (setup's comb encryption still
    runs it) and the NTT kernel once per pass of its seven transforms.
@@ -74,9 +75,27 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 11. bench: `python -m zksnark_tpu_torch.bench --log-n 20 --repeats 2` in
    its own process; its headline must parse, with a value > 0 and the
    proof verified.
-Each of phases 5-11 resets the kernel launch counts just before what it
-drives and reads them just after (a process's own counts for the CLI and
-the bench); the kernels' JSON line gives them by path.
+12. mesh: the mesh path (`device_setup(mesh=)`, `device_prove(mesh=)`:
+   the four-step quotient on the batched NTT pass, point-sharded MSMs),
+   each rank a child process on the card: NCCL at world size 1 with n =
+   2^20, then gloo at world sizes 2 and 4 with every rank on cuda:0 and
+   n = 2^18.  Each run: setup, then two proves with the blindings of
+   `[path]`; every rank's proofs must be byte-equal (`proof_to_json`) to
+   the single-device proofs with the same trapdoor and blindings (those
+   of `[path]` at 2^20, two more made here at 2^18), verify on [x] and
+   be rejected on [x + 1]; each prove must launch the batched NTT once
+   per pass of its seven four-step transforms (both halves), the bucket
+   scan once per MSM and no single-transform NTT or elementwise madd,
+   and setup and the proves together every kernel entry of the mesh
+   path (all but the elementwise double and the single-transform NTT).
+   The batched NTT pass is also checked in phase 2: small batches of
+   every log_n from 1 to 12 and the path's four-step batches, forward
+   and inverse, bit-exact against its plain version and against the
+   same transforms launched one at a time; and timed at the path's
+   batches beside that loop of launches.
+Each of phases 5-12 resets the kernel launch counts just before what it
+drives and reads them just after (a process's own counts for the CLI,
+the bench and each rank); the kernels' JSON line gives them by path.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit (nvidia-smi), and {"ok": true, "device": {...}}.  Imports nothing of
@@ -95,6 +114,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -140,8 +160,13 @@ SOURCES = {
     "horner": "zksnark_tpu_torch/csrc/point_scan.cu",
 }
 # the elementwise double has no launch on the main path: the MSM's
-# doubling chains run in double_n and horner
-OFF_PATH = ("double_g1", "double_g2")
+# doubling chains run in double_n and horner; the batched NTT runs on the
+# mesh path only, where every transform is batched
+OFF_PATH = ("double_g1", "double_g2", "ntt_fr_batched")
+MESH_OFF_PATH = ("double_g1", "double_g2", "ntt_fr")
+MESH_ONLY = ("ntt_fr_batched",)
+# result name -> TPU_KERNELS / SOURCES key, where not the name's stem
+OP_OF = {"ntt_fr_batched": "ntt"}
 
 
 def log(msg: str) -> None:
@@ -512,6 +537,55 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
     log(f"[kernels] ntt_fr: log_n 1..{NTT_LOG_N}, forward and inverse, "
         f"default and uneven passes, max |kernel - plain| = {err}; 2^5 vs "
         f"host DFT {'ok' if sem else 'FAIL'}")
+    ntt_batch_check(dev, seed, results)
+
+
+def rand_limbs(gen, shape) -> torch.Tensor:
+    """Random Fr limbs below p (the top limb's high bits cleared)."""
+    t = torch.randint(-(1 << 31), 1 << 31, tuple(shape) + (8,),
+                      dtype=torch.int64, device=gen.device, generator=gen)
+    t[..., 7] &= 0x0FFFFFFF
+    return t.to(torch.int32)
+
+
+def ntt_batch_check(dev, seed: int, results: dict) -> None:
+    """The batched NTT pass on random inputs: batches of 3 transforms of
+    every log_n from 1 to 12 in the default and an uneven split, and the
+    mesh path's four-step batches (NTT_BATCH_SHAPES), forward and
+    inverse.  Each must equal its plain version and the same transforms
+    launched one at a time (which the checks above hold to the plain
+    version and the host DFT) bit for bit."""
+    from zksnark_tpu_torch.field.limb import FR_CTX
+    from zksnark_tpu_torch.ops import ntt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    err = one_err = checked = 0
+    for b, log_n in [(3, k) for k in range(1, 13)] + NTT_BATCH_SHAPES:
+        d = ntt.get_domain(log_n, dev)
+        x = rand_limbs(gen, (b, 1 << log_n))
+        splits = [d.widths]
+        if b == 3 and log_n > 1:
+            splits.append((1,) + ntt.pass_widths(log_n - 1))
+        for tw in (d.t.tw_table, d.t.tw_table_inv):
+            for widths in splits:
+                got = ntt.butterflies(FR_CTX, log_n, tw, x, widths)
+                want = ntt.butterflies_plain(FR_CTX, log_n, tw, x, widths)
+                one = torch.stack([ntt.butterflies(FR_CTX, log_n, tw, x[i],
+                                                   widths)
+                                   for i in range(b)])
+                torch.cuda.synchronize()
+                err = max(err, limb_err(got, want))
+                one_err = max(one_err, limb_err(got, one))
+                checked += b << log_n
+    results["ntt_fr_batched"] = {"max_abs_err": err, "bit_exact": err == 0,
+                                 "host_edge_ok": one_err == 0,
+                                 "n_checked": checked}
+    log(f"[kernels] ntt_fr_batched: 3 transforms of log_n 1..12 (default "
+        f"and uneven passes) and the four-step batches "
+        f"{NTT_BATCH_SHAPES}, forward and inverse, max |kernel - plain| = "
+        f"{err}; vs one launch per transform "
+        f"{'ok' if one_err == 0 else 'FAIL'}")
 
 
 def bucket_err(got, want) -> int:
@@ -680,6 +754,7 @@ def time_phase(dev, seed: int, results: dict) -> None:
         if g == "g1":
             bucket_c_msm(lambda n: rnd(n, FQ_CTX, elem), gen, results)
     ntt_timing(rnd(1 << NTT_LOG_N, FR_CTX), results)
+    ntt_batch_timing(gen, results)
 
 
 # shapes: montmul_fr at the prove's elementwise products (n^-1, coset,
@@ -727,6 +802,10 @@ def loop_add_scan(ops, grid, collect):
 # the bucket scan at one 2^20 MSM's shape: W windows of c-bit digits
 BUCKET_SHAPE = {"windows": 16, "c": 16, "n": 1 << 20}
 NTT_LOG_N = 20                   # the prove's transforms; checked 1 .. 20
+# the mesh path's four-step batches, (transforms, log n) of a rank's
+# half-transform: d = 1 at n = 2^20 (n1 = n2 = 2^10), then d = 2 and d = 4
+# at n = 2^18 (n1 = n2 = 2^9)
+NTT_BATCH_SHAPES = [(1 << 10, 10), (1 << 8, 9), (1 << 7, 9)]
 
 
 def loop_bucket_scan(ops, pts, order, d_sorted, num_buckets, affine):
@@ -932,6 +1011,44 @@ def ntt_timing(x, results) -> None:
         f"loop of stages {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); max |kernel - "
         f"plain|, |loop - plain| = {err}")
+
+
+def ntt_batch_timing(gen, results) -> None:
+    """The batched NTT at the mesh path's four-step batches: the kernel
+    (one launch per pass for the whole batch), its plain version and the
+    loop of one transform per launch that it replaces, on the same
+    input, timed and compared."""
+    from zksnark_tpu_torch.field.limb import FR_CTX
+    from zksnark_tpu_torch.ops import ntt
+
+    per_shape = []
+    for b, log_n in NTT_BATCH_SHAPES:
+        d = ntt.get_domain(log_n, gen.device)
+        x = rand_limbs(gen, (b, 1 << log_n))
+        ms, got = time_cuda(lambda: ntt.ntt(d, x), 20)
+        loop_ms, old = time_cuda(
+            lambda: torch.stack([ntt.ntt(d, x[i]) for i in range(b)]), 3)
+        plain_ms, want = time_cuda(lambda: ntt.butterflies_plain(
+            FR_CTX, log_n, d.t.tw_table, x, d.widths), 1)
+        err = max(limb_err(got, want), limb_err(old, want))
+        n = 1 << log_n
+        bnd = bound(32 * (2 * b * n + n // 2),
+                    b * log_n * (n // 2) * (IMAD_PER_MUL + 2 * OPS_PER_ADD))
+        per_shape.append({"shape": [b, n], "ms": ms, "loop_ms": loop_ms,
+                          "plain_ms": plain_ms, "err": err,
+                          "widths": list(d.widths), **bnd})
+        log(f"[timing] ntt_fr_batched {b} x 2^{log_n} passes {d.widths}: "
+            f"kernel {ms:.4f} ms, loop of {b} launches {loop_ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}); max |kernel - plain|, |loop - plain| = "
+            f"{err}")
+    first = per_shape[0]
+    results["ntt_fr_batched"].update(
+        shape=first["shape"], ms=first["ms"], loop_ms=first["loop_ms"],
+        plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+        bound_by=first["bound_by"], per_shape=per_shape,
+        checked_shapes=[p["shape"] for p in per_shape],
+        path_shape_err=max(p["err"] for p in per_shape))
 
 
 def loop_double_n(ops, p, k):
@@ -1151,6 +1268,7 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
     from zksnark_tpu_torch.field import params
     from zksnark_tpu_torch.groth16 import protocol, prover
     from zksnark_tpu_torch.groth16.backend import BN254Backend
+    from zksnark_tpu_torch.utils import serialization as ser
 
     t0 = time.time()
     r1cs, wit = synthetic_square_chain((1 << log_n) - 1)
@@ -1217,7 +1335,8 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
             raise SystemExit(f"prove {i} launched {wrong}, expected "
                              f"{ {k: expect[k] for k in wrong} }")
         per_prove.append({"ms": ms, "launches": launches, "k3_k4": k34,
-                          "peak_gib": peak})
+                          "peak_gib": peak,
+                          "proof": ser.proof_to_json(proof)})
     total = counts()
     peak = max([setup_peak] + [p["peak_gib"] for p in per_prove])
     log(f"[path] launches over setup + {n_proves} proves: {total}; peak "
@@ -1811,6 +1930,239 @@ def bench_phase() -> dict:
     return {"launches": launches, "headline": head, "details": det}
 
 
+# one rank of the mesh path: python -c MESH_RANK BACKEND WORLD RANK LOG_N
+# PORT N_PROVES.  Builds the square chain and the comb tables (timed
+# apart, as [path] does), runs device_setup(mesh=) and N_PROVES
+# device_prove(mesh=) with the blindings of [path] on cuda:0, each prove
+# started by all ranks together (a barrier), writes its kernel launches
+# to stderr after setup and after each prove (counts reset just before
+# each), verifies the proofs on rank 0 after the last prove, and prints
+# one JSON line last on stdout.
+MESH_RANK = """import json, sys, time
+import torch
+import torch.distributed as dist
+from zksnark_tpu_torch.bench import synthetic_square_chain
+from zksnark_tpu_torch.curve import bn254 as hc
+from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
+from zksnark_tpu_torch.field import params
+from zksnark_tpu_torch.groth16 import protocol, prover
+from zksnark_tpu_torch.groth16.backend import BN254Backend
+from zksnark_tpu_torch.ops import curve_kernels, montmul, ntt
+from zksnark_tpu_torch.parallel import multihost
+from zksnark_tpu_torch.utils.serialization import proof_to_json
+
+backend = sys.argv[1]
+world, rank, log_n, port, n_proves = map(int, sys.argv[2:7])
+COUNTERS = (montmul.LAUNCHES, ntt.LAUNCHES, curve_kernels.LAUNCHES)
+
+
+def report(label):
+    print("LAUNCHES " + label + " " + json.dumps(
+        {k: v for d in COUNTERS for k, v in d.items()}), file=sys.stderr,
+        flush=True)
+    for d in COUNTERS:
+        for k in d:
+            d[k] = 0
+
+
+multihost.init_distributed(f"tcp://127.0.0.1:{port}", world, rank,
+                           backend=backend, device="cuda:0")
+mesh = multihost.global_mesh()
+t0 = time.time()
+r1cs, wit = synthetic_square_chain((1 << log_n) - 1)
+dqap = prover.compile_r1cs(r1cs)
+torch.cuda.synchronize()
+out = {"rank": rank, "host_s": time.time() - t0}
+t0 = time.time()
+for ops, base in (
+        (FQ_OPS, hc.g1_scalar_mul(hc.G1_GEN_PT, params.ENCRYPT_G1_SCALE)),
+        (FQ2_OPS, hc.g2_scalar_mul(hc.G2_GEN, params.ENCRYPT_G2_SCALE))):
+    prover._comb_table(ops, base, dqap.device)
+torch.cuda.synchronize()
+out["comb_s"] = time.time() - t0
+report("circuit")
+torch.cuda.reset_peak_memory_stats()
+t0 = time.time()
+crs = prover.device_setup(dqap, trapdoor=(11, 22, 33, 44, 55), mesh=mesh)
+torch.cuda.synchronize()
+out["setup_s"] = time.time() - t0
+out["setup_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+report("setup")
+be = BN254Backend()
+pair = (crs.sigmag1, crs.sigmag2)
+for key in ("prove_ms", "peak_gib", "proofs", "verify"):
+    out[key] = []
+proofs = []
+for i in range(n_proves):
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    proof = prover.device_prove(dqap, crs, wit, blinding=(7 + i, 9 + i),
+                                mesh=mesh)
+    torch.cuda.synchronize()
+    out["prove_ms"].append((time.time() - t0) * 1e3)
+    out["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+    report(f"prove{i}")
+    proofs.append(proof)
+    out["proofs"].append(proof_to_json(proof))
+if rank == 0:
+    out["verify"] = [[protocol.verify(be, pair, [wit[1]], p),
+                      protocol.verify(be, pair, [wit[1] + 1], p)]
+                     for p in proofs]
+dist.destroy_process_group()
+print(json.dumps(out), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_run(backend: str, world: int, log_n: int, want: list) -> dict:
+    """One mesh run of `world` rank processes (MESH_RANK), each proof held
+    to `want` (the single-device proofs' JSON); returns rank 0's numbers
+    and every rank's launches."""
+    from zksnark_tpu_torch.ops import ntt
+    from zksnark_tpu_torch.parallel import prove_sharded as psh
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    port = free_port()
+    label = f"{backend} d={world} n=2^{log_n}"
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_RANK, backend, str(world), str(r),
+         str(log_n), str(port), str(len(want))],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    # a rank that fails leaves the others waiting in a collective: kill
+    # them all as soon as one fails, or at the time limit
+    with ThreadPoolExecutor(world) as pool:
+        reads = [pool.submit(p.communicate) for p in procs]
+        while not all(f.done() for f in reads):
+            if time.time() - t0 > 600 or any(
+                    p.poll() not in (None, 0) for p in procs):
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+            wait(reads, timeout=0.5, return_when=FIRST_COMPLETED)
+        outs = [f.result() for f in reads]
+    wall = time.time() - t0
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        # the rank that failed first, not one killed for waiting on it
+        r = min(failed, key=lambda r: procs[r].returncode == -9)
+        raise SystemExit(f"mesh {label}: rank {r} exited "
+                         f"{procs[r].returncode} after {wall:.0f} s; "
+                         f"stderr:\n{outs[r][1][-3000:]}")
+    split = psh.four_step_split(log_n, world)
+    passes = sum(len(ntt.pass_widths(k)) for k in split)
+    expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
+              "madd_g2": 0, "ntt_fr": 0, "ntt_fr_batched": 7 * passes}
+    ranks = []
+    for r, (out, err) in enumerate(outs):
+        res = json.loads(out.strip().splitlines()[-1])
+        launches = {}
+        for ln in err.splitlines():
+            if ln.startswith("LAUNCHES "):
+                _, phase, body = ln.split(" ", 2)
+                launches[phase] = json.loads(body)
+        total = {k: launches["setup"][k] + sum(
+            launches[f"prove{i}"][k] for i in range(len(want)))
+            for k in launches["setup"]}
+        res.update(launches=launches, total=total)
+        for i, proof in enumerate(res["proofs"]):
+            if proof != want[i]:
+                raise SystemExit(f"mesh {label}: rank {r} proof {i} differs "
+                                 f"from the single-device proof")
+            got = launches[f"prove{i}"]
+            wrong = {k: got[k] for k, v in expect.items() if got[k] != v}
+            if wrong or not all(got[k] > 0 for k in (
+                    "add_scan_g1", "add_scan_g2", "horner_g1", "horner_g2",
+                    "montmul_fr")):
+                raise SystemExit(f"mesh {label}: rank {r} prove {i} "
+                                 f"launched {got}, expected {expect} and "
+                                 f"add_scan, horner, montmul_fr > 0")
+        zero = [k for k, v in total.items()
+                if v == 0 and k not in MESH_OFF_PATH]
+        if zero:
+            raise SystemExit(f"mesh {label}: rank {r} never launched {zero}")
+        log(f"[mesh] {label} rank {r}: host circuit {res['host_s']:.2f} s, "
+            f"comb tables {res['comb_s']:.2f} s, "
+            f"setup {res['setup_s']:.2f} s (peak {res['setup_peak_gib']:.2f}"
+            f" GiB), prove ms {[round(t, 1) for t in res['prove_ms']]} (peak"
+            f" GiB {[round(g, 2) for g in res['peak_gib']]}); launches per "
+            f"prove {launches['prove0']}")
+        ranks.append(res)
+    if len(ranks[0]["verify"]) != len(want) or \
+            any(not ok or bad for ok, bad in ranks[0]["verify"]):
+        raise SystemExit(f"mesh {label}: verify [x], [x+1] gave "
+                         f"{ranks[0]['verify']}")
+    n = 1 << log_n
+    log(f"[mesh] {label}: {world} ranks, proofs byte-equal to the single-"
+        f"device proofs, verify [x] True, [x+1] False; {wall:.1f} s of "
+        f"wall; per prove and rank 7 all-to-alls of {n * 32 // world} B "
+        f"and 5 all-gathers of {world} points")
+    return {"backend": backend, "world": world, "log_n": log_n,
+            "wall_s": wall, "split": list(split),
+            "setup_s": [r["setup_s"] for r in ranks],
+            "prove_ms": [r["prove_ms"] for r in ranks],
+            "peak_gib": [max([r["setup_peak_gib"]] + r["peak_gib"])
+                         for r in ranks],
+            "launches_per_prove": [r["launches"]["prove0"] for r in ranks],
+            "launches": ranks[0]["total"]}
+
+
+def single_proofs(dev, log_n: int, n_proves: int) -> list:
+    """The single-device proofs of the square chain at 2^log_n with the
+    trapdoor and blindings of [path] and the mesh runs."""
+    from zksnark_tpu_torch.bench import synthetic_square_chain
+    from zksnark_tpu_torch.groth16 import prover
+    from zksnark_tpu_torch.utils import serialization as ser
+
+    t0 = time.time()
+    r1cs, wit = synthetic_square_chain((1 << log_n) - 1)
+    dqap = prover.compile_r1cs(r1cs, device=dev)
+    crs = prover.device_setup(dqap, trapdoor=(11, 22, 33, 44, 55))
+    out, ms = [], []
+    for i in range(n_proves):
+        t1 = time.time()
+        out.append(ser.proof_to_json(prover.device_prove(
+            dqap, crs, wit, blinding=(7 + i, 9 + i))))
+        torch.cuda.synchronize()
+        ms.append((time.time() - t1) * 1e3)
+    log(f"[mesh] single-device reference at n=2^{log_n}: "
+        f"{time.time() - t0:.1f} s, prove ms {[round(t, 1) for t in ms]}")
+    del dqap, crs
+    torch.cuda.empty_cache()
+    return out, ms
+
+
+# the mesh runs: (backend, world size, log n); NCCL takes one rank per
+# card, so the card runs it at world size 1, and gloo puts 2 and 4 ranks
+# on the same card
+MESH_RUNS = [("nccl", 1, 20), ("gloo", 2, 18), ("gloo", 4, 18)]
+
+
+def mesh_phase(dev, path_proofs: list) -> dict:
+    """The mesh runs of MESH_RUNS, each against the single-device proofs
+    at its n ([path]'s at 2^20)."""
+    runs, refs = [], {20: (path_proofs[:2], None)}
+    for backend, world, log_n in MESH_RUNS:
+        if log_n not in refs:
+            refs[log_n] = single_proofs(dev, log_n, 2)
+        runs.append(mesh_run(backend, world, log_n, refs[log_n][0]))
+    return {"launches": runs[0]["launches"], "runs": runs,
+            "single_prove_ms": {k: v[1] for k, v in refs.items() if v[1]}}
+
+
 def profiled(fn) -> tuple:
     """One call of `fn` under torch.profiler: (wall ms, ended by a
     synchronize; device busy ms; (kernel name, device ms, count) rows by
@@ -1945,23 +2297,28 @@ def main(argv=None) -> int:
     del xi_g1_host
     torch.cuda.empty_cache()
     bench = bench_phase()
+    mesh = mesh_phase(dev, [p["proof"] for p in path["proves"]])
     extra = {"host": host, "field": field, "poly_mul": pmul,
-             "msm_bits": bits, "bench": bench}
+             "msm_bits": bits, "bench": bench, "mesh": mesh}
 
     kernels = []
     for name, r in results.items():
-        op = name.rsplit("_", 1)[0]
+        op = OP_OF.get(name, name.rsplit("_", 1)[0])
+        # each entry's main path: the mesh path for the batched NTT
+        main_path = mesh if name in MESH_ONLY else path
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[op],
             "replaces": TPU_KERNELS[op],
-            "launches": path["launches"][name],
+            "launches": main_path["launches"][name],
             "max_abs_err": max(r["max_abs_err"], r["path_shape_err"]),
             "path_shape_err": r["path_shape_err"],
             "checked_shapes": r["checked_shapes"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"],
-            "launches_per_prove": path["proves"][-1]["launches"][name],
+            "launches_per_prove": (
+                mesh["runs"][0]["launches_per_prove"][0] if name in MESH_ONLY
+                else path["proves"][-1]["launches"])[name],
             "launches_by_path": {
                 "square_chain": path["launches"][name],
                 "keccak": keccak["launches"][name],
@@ -1971,6 +2328,7 @@ def main(argv=None) -> int:
                 keccak["proves"][-1]["launches"][name],
             **({"c_msm": r["c_msm"]} if "c_msm" in r else {}),
             **({"loop_ms": r["loop_ms"]} if "loop_ms" in r else {}),
+            **({"per_shape": r["per_shape"]} if "per_shape" in r else {}),
         })
     log(f"[path] n=2^{log_n}: setup {path['setup_s']:.2f} s, prove "
         f"ms {[round(p['ms'], 1) for p in path['proves']]}")
@@ -1983,6 +2341,11 @@ def main(argv=None) -> int:
         f"[poly_mul] 2^20 {pmul['ms']:.3f} ms; [msm_bits] 2^20 "
         f"{bits['ms']:.3f} ms (W = 4) vs {bits['full_ms']:.3f} ms (W = 16); "
         f"[bench] {json.dumps(bench['headline'])}")
+    for run in mesh["runs"]:
+        log(f"[mesh] {run['backend']} d={run['world']} n=2^{run['log_n']}: "
+            f"setup s {[round(t, 2) for t in run['setup_s']]}, prove ms "
+            f"{[[round(t, 1) for t in r] for r in run['prove_ms']]}, peak "
+            f"GiB {[round(g, 2) for g in run['peak_gib']]}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,7 @@ SIGNATURES = {
         "zk_point_bucket_scan": [_I, _I] + [_P] * 13 + [_I, _LL, _I, _I, _P],
         "zk_point_horner": [_I] + [_P] * 6 + [_LL, _I, _I, _P],
     },
-    "ntt.cu": {"zk_ntt_pass": [_P] * 3 + [_I] * 5 + [_P]},
+    "ntt.cu": {"zk_ntt_pass": [_P] * 3 + [_I] * 6 + [_P]},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -20,6 +20,13 @@ rate over chained launches timed with CUDA events) go to `--details`, by
 default `chiprun_out/bench_details.json` under the repository root.
 Progress goes to standard error.
 
+Two safeguards, as in the root `bench.py`: the environment variable
+`BENCH_BUDGET_S` (default 3300) is the run's budget in seconds, and when
+what is left of it runs short the repeats stop and the sub-metrics are
+skipped; and SIGTERM flushes the details and prints the headline, once
+a prove has been measured, then exits 0 (1 before the first measured
+prove).  Either way the headline stays the last line on standard output.
+
 It runs on the card and raises without one; `--device cpu` runs the
 plain PyTorch versions of the kernels, for tests, at a small --log-n.
 """
@@ -29,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import sys
 import time
 
@@ -43,6 +51,46 @@ DEFAULT_DETAILS = os.path.join(_ROOT, "chiprun_out", "bench_details.json")
 TRAPDOOR = (11, 22, 33, 44, 55)
 BLINDING = (7, 9)
 MONTMUL_CHAIN = 64      # chained launches timed for the montmul rate
+SUBMETRIC_MIN_S = 120   # budget left that each sub-metric needs
+
+# the running bench, for the SIGTERM handler: its start time, details
+# and their path, its headline once a prove is measured, and whether the
+# headline has been printed
+_RUN: dict = {}
+
+
+def _budget_s() -> float:
+    return float(os.environ.get("BENCH_BUDGET_S", "3300"))
+
+
+def _remaining() -> float:
+    return _budget_s() - (time.time() - _RUN["t_start"])
+
+
+def _flush() -> None:
+    path = _RUN["path"]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(_RUN["details"], f, indent=2)
+
+
+def _print_headline() -> None:
+    print(json.dumps(_RUN["headline"]), flush=True)
+    _RUN["printed"] = True
+
+
+def _on_term(signum, frame):
+    """Flush the details; print the headline if a prove was measured
+    (and it is not already the last line); exit 0 if a verified prove
+    was measured, else 1."""
+    if "details" in _RUN:
+        _RUN["details"]["killed_at_s"] = time.time() - _RUN["t_start"]
+        _flush()
+    head = _RUN.get("headline")
+    if head and not _RUN.get("printed"):
+        _print_headline()
+    sys.stderr.flush()
+    os._exit(0 if head and head["value"] > 0 else 1)
 
 
 def synthetic_square_chain(n_gates: int):
@@ -131,15 +179,26 @@ def _montmul_rate(dev, a: torch.Tensor):
 
 def _submetrics(details: dict, dqap, crs, wit, t_start: float) -> None:
     """One G1 MSM over xi_g1 with the witness as scalars, one forward NTT
-    and the montmul rate, at the domain's size."""
+    and the montmul rate, at the domain's size; each is skipped once less
+    than SUBMETRIC_MIN_S of the budget is left."""
     from .curve.field_ops import FQ_OPS
     from .field.limb import FR_CTX
     from .ops import msm as msmod
     from .ops import ntt as nttmod
     from .utils.profiling import ntt_work
 
+    def skip(name):
+        if _remaining() >= SUBMETRIC_MIN_S:
+            return False
+        details["skipped"] = details.get("skipped", []) + [name]
+        _log(t_start, f"{name} skipped: {_remaining():.0f} s of the budget "
+             "left")
+        return True
+
     dev, n = dqap.device, dqap.n
     vals = wit[:n] + [0] * max(0, n - len(wit))
+    if skip("msm_g1"):
+        return
     scalars = torch.from_numpy(FR_CTX.to_limbs_np(vals)).to(dev)
     wb = msmod.pick_window_bits(n)
     msm_s = _timed(dev, lambda: msmod.msm_windowed(
@@ -148,12 +207,16 @@ def _submetrics(details: dict, dqap, crs, wit, t_start: float) -> None:
     details["msm_gexp_per_s"] = n / msm_s
     _log(t_start, f"msm_g1 {msm_s * 1e3:.1f} ms")
 
+    if skip("ntt"):
+        return
     a = torch.from_numpy(FR_CTX.to_mont_np(vals)).to(dev)
     ntt_s = _timed(dev, lambda: nttmod.ntt(dqap.domain, a))
     details["ntt_ms"] = ntt_s * 1e3
     details["ntt_butterflies_per_s"] = ntt_work(n)["butterflies"] / ntt_s
     _log(t_start, f"ntt {ntt_s * 1e3:.2f} ms")
 
+    if skip("montmul"):
+        return
     rate = _montmul_rate(dev, a)
     details["montmul_n"] = n
     details["montmul_Mmul_per_s"] = None if rate is None else rate / 1e6
@@ -166,15 +229,12 @@ def run(log_n: int, repeats: int, details_path: str, device=None) -> dict:
 
     t_start = time.time()
     dev = resolve_device(device)
-    details: dict = {"log_n": log_n, "device": str(dev)}
+    details: dict = {"log_n": log_n, "device": str(dev),
+                     "budget_s": _budget_s()}
+    _RUN.clear()
+    _RUN.update(t_start=t_start, details=details, path=details_path)
     if dev.type == "cuda":
         details["device_name"] = torch.cuda.get_device_name(dev)
-
-    def flush():
-        os.makedirs(os.path.dirname(os.path.abspath(details_path)),
-                    exist_ok=True)
-        with open(details_path, "w") as f:
-            json.dump(details, f, indent=2)
 
     n_gates = (1 << log_n) - 1   # leave one slot: domain n = 2^log_n
     r1cs, wit = synthetic_square_chain(n_gates)
@@ -198,14 +258,29 @@ def run(log_n: int, repeats: int, details_path: str, device=None) -> dict:
     pair = (crs.sigmag1, crs.sigmag2)
     ok = protocol.verify(be, pair, [wit[1]], proof)
     details["proof_verified"] = bool(ok)
-    flush()
+    ref_ms = _reference_model_ms(n_gates, dqap.num_wires)
+    details["prove_repeats_ms"] = []
+
+    def measured(best_s):
+        # the headline as it stands: printed by the SIGTERM handler from
+        # here on
+        details["prove_ms"] = best_s * 1e3
+        details["vs_reference_model"] = ref_ms / (best_s * 1e3)
+        _RUN["headline"] = {"metric": f"groth16_prove_2^{log_n}",
+                            "value": best_s * 1e3, "unit": "ms",
+                            "vs_baseline": ref_ms / (best_s * 1e3)}
+        _flush()
+
+    if ok:
+        measured(t_warm)
     _log(t_start, f"prove warm-up {t_warm:.2f} s; proof verifies: {ok}")
     if not ok:
-        headline = {"metric": f"groth16_prove_2^{log_n}", "value": -1,
-                    "unit": "ms", "vs_baseline": 0.0,
-                    "error": "proof failed verification"}
-        print(json.dumps(headline))
-        return headline
+        _flush()
+        _RUN["headline"] = {"metric": f"groth16_prove_2^{log_n}",
+                            "value": -1, "unit": "ms", "vs_baseline": 0.0,
+                            "error": "proof failed verification"}
+        _print_headline()
+        return _RUN["headline"]
 
     # verify_ms: the single-final-exponentiation path (native library)
     t0 = time.time()
@@ -214,29 +289,28 @@ def run(log_n: int, repeats: int, details_path: str, device=None) -> dict:
     details["verify_ms"] = (time.time() - t0) * 1e3
 
     best = t_warm
-    times = []
-    for _ in range(repeats):
+    for i in range(repeats):
+        if _remaining() < 1.5 * best:
+            details["repeats_stopped_at"] = i
+            _log(t_start, f"repeats stopped after {i}: {_remaining():.0f} "
+                 "s of the budget left")
+            break
         t0 = time.time()
         prover.device_prove(dqap, crs, wit, blinding=BLINDING)
         _sync(dev)
-        times.append(time.time() - t0)
-        best = min(best, times[-1])
-    ms = best * 1e3
-    ref_ms = _reference_model_ms(n_gates, dqap.num_wires)
-    details["prove_ms"] = ms
-    details["prove_repeats_ms"] = [t * 1e3 for t in times]
-    details["vs_reference_model"] = ref_ms / ms
-    flush()
-    _log(t_start, f"prove {ms:.1f} ms; reference model {ref_ms:.0f} ms")
+        dt = time.time() - t0
+        details["prove_repeats_ms"].append(dt * 1e3)
+        best = min(best, dt)
+        measured(best)
+    _log(t_start, f"prove {best * 1e3:.1f} ms; reference model "
+         f"{ref_ms:.0f} ms")
 
     _submetrics(details, dqap, crs, wit, t_start)
     details["total_s"] = time.time() - t_start
-    flush()
+    _flush()
     _log(t_start, f"details: {json.dumps(details)}")
-    headline = {"metric": f"groth16_prove_2^{log_n}", "value": ms,
-                "unit": "ms", "vs_baseline": ref_ms / ms}
-    print(json.dumps(headline), flush=True)
-    return headline
+    _print_headline()
+    return _RUN["headline"]
 
 
 def main(argv=None) -> int:
@@ -248,7 +322,11 @@ def main(argv=None) -> int:
                     help="torch device (default: the CUDA card; 'cpu' runs "
                     "the plain versions of the kernels, for tests)")
     args = ap.parse_args(argv)
-    headline = run(args.log_n, args.repeats, args.details, args.device)
+    saved = signal.signal(signal.SIGTERM, _on_term)
+    try:
+        headline = run(args.log_n, args.repeats, args.details, args.device)
+    finally:
+        signal.signal(signal.SIGTERM, saved)
     return 0 if headline["value"] > 0 else 1
 
 

@@ -36,6 +36,13 @@
 // one memory sector each, so the strided and bit-reversed accesses waste
 // no sector.  The twiddles come from the 16 MB table through L2.
 //
+// A launch runs one pass over a batch of transforms of the same size,
+// stored one after another (the four-step transform's columns, then its
+// rows: the `vmap` of zksnark_tpu/parallel/ntt_sharded.py:78,94,102,107
+// written out).  Block b works on transform b / (n / elems), at an
+// offset of n * 8 words; a block still owns whole groups of one
+// transform, so the pass is the single transform's, B times over.
+//
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch; launches on the caller's stream and never synchronises.
 
@@ -60,9 +67,10 @@ __device__ __forceinline__ void store8(uint32_t* p, const uint32_t r[8]) {
   reinterpret_cast<uint4*>(p)[1] = make_uint4(r[4], r[5], r[6], r[7]);
 }
 
-// One pass over stages s0 .. s0 + k - 1 of a 2^log_n transform.  A block
-// holds `elems` = blockDim.x * 2 elements: elems / 2^k whole groups, with
-// consecutive group numbers g = hi 2^(s0-1) + lo.  in may equal out.
+// One pass over stages s0 .. s0 + k - 1 of each 2^log_n transform of the
+// batch.  A block holds `elems` = blockDim.x * 2 elements of one
+// transform: elems / 2^k whole groups, with consecutive group numbers
+// g = hi 2^(s0-1) + lo.  in may equal out.
 __global__ void __launch_bounds__(kMaxElems / 2)
     ntt_pass_kernel(const uint32_t* in, uint32_t* out,
                     const uint32_t* __restrict__ tw, int log_n, int s0,
@@ -71,7 +79,13 @@ __global__ void __launch_bounds__(kMaxElems / 2)
   const int elems = 2 * blockDim.x;
   const int lo_bits = s0 - 1;
   const long long lo_mask = (1LL << lo_bits) - 1;
-  const long long g0 = (long long)blockIdx.x * (elems >> k);
+  // blocks per transform: n / elems, a power of two
+  const int per_log = log_n - (31 - __clz(elems));
+  const long long t = blockIdx.x >> per_log;
+  in += (t << log_n) * 8;
+  out += (t << log_n) * 8;
+  const long long g0 =
+      (long long)(blockIdx.x & ((1u << per_log) - 1)) * (elems >> k);
 
   // element e of the block: group g0 + e / 2^k, mid = e mod 2^k
   auto index = [&](int e) {
@@ -123,20 +137,22 @@ __global__ void __launch_bounds__(kMaxElems / 2)
 
 }  // namespace
 
-// One pass of a 2^log_n transform over (n, 8) u32-limb Fr arrays: stages
-// s0 .. s0 + k - 1 (1 <= k <= 10), `elems` elements per block (a power
-// of two with 2^k <= elems <= min(n, 2^10)); the input is read
-// bit-reversed when bitrev is set.  out may equal in (not when bitrev).
+// One pass of `batch` 2^log_n transforms over (batch, n, 8) u32-limb Fr
+// arrays: stages s0 .. s0 + k - 1 (1 <= k <= 10), `elems` elements per
+// block (a power of two with 2^k <= elems <= min(n, 2^10)); the input is
+// read bit-reversed when bitrev is set.  out may equal in (not when
+// bitrev).  batch * n / elems blocks, at most 2^31 - 1.
 extern "C" int zk_ntt_pass(const void* in, void* out, const void* tw,
                            int log_n, int s0, int k, int bitrev, int elems,
-                           void* stream) {
+                           int batch, void* stream) {
   const long long n = 1LL << log_n;
   if (log_n < 1 || log_n > 31 || k < 1 || k > kMaxPassLog || s0 < 1 ||
       s0 + k - 1 > log_n || elems < (1 << k) || elems > kMaxElems ||
-      (elems & (elems - 1)) || elems > n)
+      (elems & (elems - 1)) || elems > n || batch < 1 ||
+      batch * (n / elems) > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  ntt_pass_kernel<<<(unsigned)(n / elems), elems / 2, 0, s>>>(
+  ntt_pass_kernel<<<(unsigned)(batch * (n / elems)), elems / 2, 0, s>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(tw), log_n, s0, k, bitrev);
   return (int)cudaGetLastError();

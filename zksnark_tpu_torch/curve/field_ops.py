@@ -57,6 +57,9 @@ class FqOps:
     def is_zero(self, a):
         return limb.is_zero(a)
 
+    def eq(self, a, b):
+        return limb.eq(a, b)
+
     def zero(self, shape=(), device="cpu"):
         return torch.zeros(tuple(shape) + (L,), dtype=limb.DT, device=device)
 
@@ -109,6 +112,9 @@ class Fq2Ops(FqOps):
 
     def is_zero(self, a):
         return (a == 0).all(-1).all(-1)
+
+    def eq(self, a, b):
+        return (a == b).all(-1).all(-1)
 
     def zero(self, shape=(), device="cpu"):
         return torch.zeros(tuple(shape) + (2, L), dtype=limb.DT,

@@ -10,6 +10,9 @@ to the pure-Python pairing of `curve.bn254` (host code, not the device
 path).
 
 - `pairing_check(pairs)`: prod e(P_i, Q_i) == 1 (single final exp)
+- `multi_pairing(pairs)`: the GT product itself
+- `g1_scalar_mul(p, k)`: k * p in G1
+- `available()`: whether the native library loaded
 
 Byte layout (see native/bn254.cc): 32-byte little-endian plain-form field
 elements; G1 = x||y, G2 = x0||x1||y0||y1; infinity = all-zero.
@@ -21,7 +24,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -56,10 +59,20 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.bn254_pairing_check.restype = ctypes.c_int
         lib.bn254_pairing_check.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
+        lib.bn254_multi_pairing.restype = None
+        lib.bn254_multi_pairing.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p]
+        lib.bn254_g1_scalar_mul.restype = None
+        lib.bn254_g1_scalar_mul.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p]
         _LIB = lib
     except (OSError, subprocess.SubprocessError):
         _LIB = None
     return _LIB
+
+
+def available() -> bool:
+    return _load() is not None
 
 
 def _g1_bytes(p) -> bytes:
@@ -86,3 +99,41 @@ def pairing_check(pairs: Sequence[Tuple[object, object]]) -> bool:
     g1s = b"".join(_g1_bytes(p) for p, _ in pairs)
     g2s = b"".join(_g2_bytes(q) for _, q in pairs)
     return bool(lib.bn254_pairing_check(g1s, g2s, len(pairs)))
+
+
+def multi_pairing(pairs: Sequence[Tuple[object, object]]):
+    """GT element prod e(P_i, Q_i) as the python Fq12 tuple layout."""
+    lib = _load()
+    if lib is None:
+        from . import bn254 as c
+
+        return c.multi_pairing(pairs)
+    g1s = b"".join(_g1_bytes(p) for p, _ in pairs)
+    g2s = b"".join(_g2_bytes(q) for _, q in pairs)
+    out = ctypes.create_string_buffer(12 * 32)
+    lib.bn254_multi_pairing(g1s, g2s, len(pairs), out)
+    raw = out.raw
+    coeffs: List[Tuple[int, int]] = []
+    for i in range(6):
+        c0 = int.from_bytes(raw[64 * i:64 * i + 32], "little")
+        c1 = int.from_bytes(raw[64 * i + 32:64 * i + 64], "little")
+        coeffs.append((c0, c1))
+    return tuple(coeffs)
+
+
+def g1_scalar_mul(p, k: int):
+    """k * p (None for infinity); native when available, python
+    otherwise."""
+    lib = _load()
+    if lib is None:
+        from . import bn254 as c
+
+        return c.g1_scalar_mul(p, k)
+    out = ctypes.create_string_buffer(64)
+    lib.bn254_g1_scalar_mul(
+        _g1_bytes(p), (k % (1 << 256)).to_bytes(32, "little"), out)
+    x = int.from_bytes(out.raw[:32], "little")
+    y = int.from_bytes(out.raw[32:], "little")
+    if x == 0 and y == 0:
+        return None
+    return (x, y)

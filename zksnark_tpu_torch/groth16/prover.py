@@ -1,8 +1,8 @@
 """The device prover: Groth16 setup / prove over limb tensors (NTT + MSM).
 
-Counterpart of `zksnark_tpu/groth16/prover.py` (single device; no mesh).
-Gates are laid out on a 2^k subgroup D of Fr*, the vanishing polynomial
-is t = x^n - 1, and unused slots hold all-zero constraint rows.
+Counterpart of `zksnark_tpu/groth16/prover.py`.  Gates are laid out on
+a 2^k subgroup D of Fr*, the vanishing polynomial is t = x^n - 1, and
+unused slots hold all-zero constraint rows.
 
   setup   host powers of the trapdoor x -> one iNTT for the Lagrange
           values -> a segmented field sum per wire -> fixed-base comb
@@ -18,6 +18,14 @@ pairings stay on the host.
 Entry points put their tensors on the first CUDA card unless the caller
 passes `device="cpu"` to `compile_r1cs`; setup and prove run where the
 compiled circuit lives.
+
+`mesh=` (a `parallel.multihost.Mesh`) runs setup and prove over several
+processes, each rank calling them with the same arguments: setup's comb
+encryptions split the scalars into one stripe per rank and all-gather the
+normalized points, so every rank holds the whole `DeviceCRS`; prove runs
+`parallel.prove_sharded` (the four-step quotient and point-sharded MSMs)
+and every rank returns the same proof.  Randomness left to the prover is
+drawn on rank 0 and shared.
 """
 
 from __future__ import annotations
@@ -205,12 +213,39 @@ def _comb_encrypt(ops, table: JPoint, scalars_std: torch.Tensor) -> JPoint:
     return acc
 
 
-def _fixed_base_encrypt(ops, base_affine, scalars_std: torch.Tensor
-                        ) -> JPoint:
+def _fixed_base_encrypt(ops, base_affine, scalars_std: torch.Tensor,
+                        mesh=None) -> JPoint:
     """Batched fixed-base scalar-mul E(s_i) = s_i * base, normalized so
-    every prover MSM can run mixed adds."""
+    every prover MSM can run mixed adds.
+
+    mesh: each rank encrypts and normalizes its stripe of the scalars
+    (padded with zeros to a multiple of the mesh size) against the
+    replicated table, and the stripes are all-gathered.  Affine
+    coordinates are unique, so every rank gets the single-device result
+    bit for bit."""
     table = _comb_table(ops, base_affine, scalars_std.device)
-    return jac.batch_normalize(ops, _comb_encrypt(ops, table, scalars_std))
+    n = scalars_std.shape[0]
+    if mesh is None or n == 0:
+        return jac.batch_normalize(ops, _comb_encrypt(ops, table,
+                                                      scalars_std))
+    from ..parallel.msm_sharded import all_gather_points
+
+    m = n + (-n) % mesh.size
+    padded = torch.cat([scalars_std, scalars_std.new_zeros((m - n, L))])
+    per = m // mesh.size
+    local = padded[mesh.rank * per:(mesh.rank + 1) * per]
+    part = jac.batch_normalize(ops, _comb_encrypt(ops, table, local))
+    pts = all_gather_points(mesh, ops, part)         # (d, per, ...)
+    return JPoint(*(a.reshape((m,) + a.shape[2:])[:n] for a in pts))
+
+
+def _rank0_ints(mesh, vals: Sequence[int]) -> Tuple[int, ...]:
+    """Rank 0's values on every rank (vals < 2^256)."""
+    if mesh is None or mesh.size == 1:
+        return tuple(vals)
+    limbs = torch.from_numpy(FR_CTX.to_limbs_np(list(vals)))
+    got = mesh.all_gather(limbs.to(mesh.device))[0].cpu().numpy()
+    return tuple(int(v) for v in FR_CTX.from_limbs_np(got))
 
 
 def _setup_scalars(domain, num_wires: int, ells, xi_mont, alpha_mont,
@@ -247,16 +282,21 @@ def device_setup(
     dqap: DeviceQAP,
     trapdoor: Optional[Tuple[int, int, int, int, int]] = None,
     rng=None,
+    mesh=None,
 ) -> DeviceCRS:
     """CRS generation on the device that holds `dqap`: one iNTT for the
     Lagrange values, a segmented field sum for the per-wire combination,
     and batched fixed-base comb scalar-muls for every encryption.  Host
-    work is O(sqrt n) bigint powers + O(input) sigma points."""
+    work is O(sqrt n) bigint powers + O(input) sigma points.
+
+    mesh: the comb encryptions run sharded over the mesh's ranks (see
+    `_fixed_base_encrypt`); every rank returns the whole CRS."""
     dev = dqap.device
     f = FR_CTX.p
     if trapdoor is None:
         r = rng or _random
-        trapdoor = tuple(r.randrange(1, f) for _ in range(5))
+        trapdoor = _rank0_ints(
+            mesh, [r.randrange(1, f) for _ in range(5)])
     alpha, beta, gamma, delta, x = (t % f for t in trapdoor)
     n = dqap.n
 
@@ -308,11 +348,11 @@ def device_setup(
         xi=None)
 
     return DeviceCRS(
-        xi_g1=_fixed_base_encrypt(FQ_OPS, g1_base, xi_std),
-        xi_t_g1=_fixed_base_encrypt(FQ_OPS, g1_base, xi_t_std),
+        xi_g1=_fixed_base_encrypt(FQ_OPS, g1_base, xi_std, mesh),
+        xi_t_g1=_fixed_base_encrypt(FQ_OPS, g1_base, xi_t_std, mesh),
         sum_delta_g1=_fixed_base_encrypt(
-            FQ_OPS, g1_base, sum_delta_std[dqap.input + 1:]),
-        xi_g2=_fixed_base_encrypt(FQ2_OPS, g2_base, xi_std),
+            FQ_OPS, g1_base, sum_delta_std[dqap.input + 1:], mesh),
+        xi_g2=_fixed_base_encrypt(FQ2_OPS, g2_base, xi_std, mesh),
         sigmag1=sigmag1, sigmag2=sigmag2)
 
 
@@ -383,13 +423,20 @@ def device_prove(
     weights: Sequence[int],
     blinding: Optional[Tuple[int, int]] = None,
     rng=None,
+    mesh=None,
 ) -> Proof:
-    """Full prover: device pipeline + host final assembly."""
+    """Full prover: device pipeline + host final assembly.
+
+    mesh: the device pipeline runs the distributed four-step quotient and
+    point-sharded MSMs (`parallel.prove_sharded`); the domain must hold
+    n >= mesh size^2 (the four-step split).  Every rank returns the same
+    proof."""
     dev = dqap.device
     f = FR_CTX.p
     if blinding is None:
         rr = rng or _random
-        blinding = (rr.randrange(1, f), rr.randrange(1, f))
+        blinding = _rank0_ints(mesh, [rr.randrange(1, f),
+                                      rr.randrange(1, f)])
     r, s = (b % f for b in blinding)
 
     w_full = list(weights) + [0] * (dqap.num_wires - len(weights))
@@ -398,10 +445,19 @@ def device_prove(
     w_std = torch.from_numpy(FR_CTX.to_limbs_np(w_full)).to(dev)
     weights_mont = mont_mul(FR_CTX, w_std, FR_CTX.const("r2", dev))
 
-    a_g1, b_g1, b_g2, h_xt, c_delta = _prove_core(
-        dqap.domain, dqap.input, msmod.pick_window_bits(dqap.n),
-        (dqap.u, dqap.v, dqap.w),
-        (crs.xi_g1, crs.xi_t_g1, crs.sum_delta_g1, crs.xi_g2), weights_mont)
+    ells = (dqap.u, dqap.v, dqap.w)
+    crs_arrays = (crs.xi_g1, crs.xi_t_g1, crs.sum_delta_g1, crs.xi_g2)
+    if mesh is None:
+        a_g1, b_g1, b_g2, h_xt, c_delta = _prove_core(
+            dqap.domain, dqap.input, msmod.pick_window_bits(dqap.n), ells,
+            crs_arrays, weights_mont)
+    else:
+        from ..parallel import prove_sharded as psh
+
+        window_bits = msmod.pick_window_bits(max(64, dqap.n // mesh.size))
+        a_g1, b_g1, b_g2, h_xt, c_delta = psh.sharded_prove_step(
+            mesh, dqap.domain, dqap.input, window_bits, ells, crs_arrays,
+            weights_mont, num_wires=dqap.num_wires)
 
     a_aff = jac.to_affine_np(FQ_OPS, a_g1)
     b1_aff = jac.to_affine_np(FQ_OPS, b_g1)

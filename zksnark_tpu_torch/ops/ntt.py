@@ -14,6 +14,11 @@ same passes with the same group and twiddle index arithmetic.  The n^-1,
 coset and vanishing multiplies stay elementwise launches of K1
 (`ops/montmul.py`).
 
+`butterflies`, `ntt` and `intt` also take a batch (B, n, 8) of
+transforms of one size: a pass is still one launch, over all B (the
+four-step transform of `parallel/ntt_sharded.py` runs its columns and
+its rows so).
+
 Coset evaluation (for the quotient h: the vanishing polynomial is the
 constant g^n - 1 on the coset g*D) is a pointwise pre/post scale.
 """
@@ -33,9 +38,9 @@ from .montmul import mont_mul
 L = params.NUM_LIMBS
 MAX_PASS_LOG = 10      # a pass runs at most 10 stages: 2^10 elements
 
-# launches of the NTT kernel (one per pass); reset and read by
-# chip_smoke.py
-LAUNCHES = {"ntt_fr": 0}
+# launches of the NTT kernel (one per pass), on one transform and on a
+# batch of more than one; reset and read by chip_smoke.py
+LAUNCHES = {"ntt_fr": 0, "ntt_fr_batched": 0}
 
 
 def pass_widths(log_n: int) -> tuple:
@@ -133,26 +138,29 @@ def _bitrev(log_n: int, device) -> torch.Tensor:
 
 def butterflies_plain(ctx: MontCtx, log_n: int, tw_table: torch.Tensor,
                       x: torch.Tensor, widths) -> torch.Tensor:
-    """The in-order-output DIT butterflies of bit-reversed x, pass by
-    pass: at stage s0 + r of a pass of k stages starting at s0, element
-    i = (hi, mid, lo) (mid < 2^k, lo < 2^(s0-1)) pairs with its partner
-    in bit r of mid, and the twiddle is tw_table[j << (log_n - s0 - r)]
-    with j = (mid mod 2^r) 2^(s0-1) + lo, as in the kernel."""
+    """The in-order-output DIT butterflies of bit-reversed x ((n, 8), or a
+    batch (B, n, 8) transformed row by row), pass by pass: at stage
+    s0 + r of a pass of k stages starting at s0, element i = (hi, mid,
+    lo) (mid < 2^k, lo < 2^(s0-1)) pairs with its partner in bit r of
+    mid, and the twiddle is tw_table[j << (log_n - s0 - r)] with j =
+    (mid mod 2^r) 2^(s0-1) + lo, as in the kernel."""
     n = 1 << log_n
     dev = x.device
-    x = x[_bitrev(log_n, dev)]
+    lead = tuple(x.shape[:-2])
+    x = x[..., _bitrev(log_n, dev), :]
     s0 = 1
     for k in widths:
         lo_n = 1 << (s0 - 1)
         hi_n = n >> (s0 - 1 + k)
         for r in range(k):
-            xr = x.reshape(hi_n, 1 << (k - 1 - r), 2, 1 << r, lo_n, L)
-            u, v = xr[:, :, 0], xr[:, :, 1]
+            xr = x.reshape(lead + (hi_n, 1 << (k - 1 - r), 2, 1 << r, lo_n,
+                                   L))
+            u, v = xr.select(-4, 0), xr.select(-4, 1)
             j = ((torch.arange(1 << r, device=dev) << (s0 - 1)).unsqueeze(1)
                  | torch.arange(lo_n, device=dev))     # (2^r, lo_n)
             t = limb.mont_mul(ctx, tw_table[j << (log_n - s0 - r)], v)
             x = torch.stack([limb.add(ctx, u, t), limb.sub(ctx, u, t)],
-                            dim=2).reshape(n, L)
+                            dim=-4).reshape(lead + (n, L))
         s0 += k
     return x
 
@@ -162,29 +170,34 @@ def _butterflies_cuda(ctx: MontCtx, log_n: int, tw_table: torch.Tensor,
     if ctx.p != FR_CTX.p:
         raise ValueError("the NTT kernel runs over Fr only")
     n = 1 << log_n
-    if x.dtype != limb.DT or tuple(x.shape) != (n, L):
-        raise ValueError(f"NTT kernel needs ({n}, {L}) int32 limbs, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    if x.dtype != limb.DT or x.dim() not in (2, 3) or \
+            tuple(x.shape[-2:]) != (n, L):
+        raise ValueError(f"NTT kernel needs ({n}, {L}) or (B, {n}, {L}) "
+                         f"int32 limbs, got {tuple(x.shape)} {x.dtype}")
+    batch = x.shape[0] if x.dim() == 3 else 1
     x, tw = (t.contiguous() for t in (x, tw_table))
     x, tw = (t.clone() if t.data_ptr() % 16 else t for t in (x, tw))
     out = torch.empty_like(x)
     fn = _build.lib("ntt.cu").zk_ntt_pass
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    key = "ntt_fr_batched" if batch > 1 else "ntt_fr"
     src, s0 = x, 1
     for k in widths:
         elems = max(1 << k, min(n, 256))
         _build.check(fn(src.data_ptr(), out.data_ptr(), tw.data_ptr(), log_n,
-                        s0, k, int(src is x), elems, stream), "ntt pass")
-        LAUNCHES["ntt_fr"] += 1
+                        s0, k, int(src is x), elems, batch, stream),
+                     "ntt pass")
+        LAUNCHES[key] += 1
         src, s0 = out, s0 + k
     return out
 
 
 def butterflies(ctx: MontCtx, log_n: int, tw_table: torch.Tensor,
                 x: torch.Tensor, widths) -> torch.Tensor:
-    """In-order-output DIT butterflies of x read in bit-reversed order,
-    in passes of `widths` stages: one kernel launch per pass on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    """In-order-output DIT butterflies of x ((n, 8) or a batch (B, n, 8))
+    read in bit-reversed order, in passes of `widths` stages: one kernel
+    launch per pass on a CUDA tensor, the plain version on a CPU
+    tensor."""
     if x.device.type == "cuda":
         return _butterflies_cuda(ctx, log_n, tw_table, x, widths)
     if x.device.type == "cpu":
@@ -193,13 +206,15 @@ def butterflies(ctx: MontCtx, log_n: int, tw_table: torch.Tensor,
 
 
 def ntt(domain: Domain, coeffs: torch.Tensor) -> torch.Tensor:
-    """coefficients -> evaluations on the domain (Montgomery in/out)."""
+    """coefficients -> evaluations on the domain (Montgomery in/out), of
+    (n, 8) or of each row of (B, n, 8)."""
     return butterflies(domain.ctx, domain.log_n, domain.t.tw_table, coeffs,
                        domain.widths)
 
 
 def intt(domain: Domain, evals: torch.Tensor) -> torch.Tensor:
-    """evaluations -> coefficients (Montgomery in/out)."""
+    """evaluations -> coefficients (Montgomery in/out), of (n, 8) or of
+    each row of (B, n, 8)."""
     x = butterflies(domain.ctx, domain.log_n, domain.t.tw_table_inv, evals,
                     domain.widths)
     return mont_mul(domain.ctx, x, domain.t.n_inv_mont.unsqueeze(0))
