@@ -10,8 +10,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    `zksnark_tpu_torch/csrc/` (one process per source, in parallel).
 2. kernels: each kernel entry — K1 montmul (Fr, Fq); K2 madd, K3 add,
    K4 double (G1, G2); the MSM's chains K2 bucket_scan, K3 add_scan, K4
-   double_n and horner (G1, G2); and the NTT passes — runs on 2^16
-   random inputs plus the edge cases (0, 1, p-1; P = Q, P = -Q, P = inf,
+   double_n and horner (G1, G2); the NTT passes; setup's K1 mont_scan
+   and normalize (Fq, Fq2: batch_normalize's prefix products and its
+   pass over the points) and its chain K2 comb (G1, G2: the fixed-base
+   comb encryption) — runs on 2^16 random inputs plus the edge cases
+   (0, 1, p-1; P = Q, P = -Q, P = inf,
    Q = inf, a malformed Z; for the chains a step at infinity, a step
    equal to the accumulator, a step equal to its negation, a lane all at
    infinity, k = 0 and 1, window sums at infinity; for the bucket scan a
@@ -19,15 +22,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    entries, empty buckets, runs across chunks and an n that is not a
    multiple of 64, mixed and general adds; for the NTT every log_n from 1
    to 20, forward and inverse, in the default passes and in an uneven
-   split) and must equal its plain PyTorch version on the same CUDA
-   inputs bit for bit; the edge cases built from real curve points (and
+   split; for the scan rows of one element, zero elements and carries,
+   a carry of one; for normalize a point alone and real points with
+   other Z and infinities; for the comb the scalars 0, 1, r - 1,
+   2^256 - 1 and ones with zero bytes, the table read both ways) and
+   must equal its plain PyTorch version on the same CUDA inputs bit for
+   bit; the edge cases built from real curve points (and
    a small NTT against the host DFT) must also equal the host
    arithmetic.  Each entry and its plain version then run on the same
    random CUDA inputs at the shapes the main path gives it: the two
    outputs must again be equal bit for bit, and both are timed with CUDA
-   events, the chains, the bucket scan and the NTT also beside the loop
-   of launches that each replaces.  The G1 bucket scan is also checked
-   at the keccak path's C MSM digit columns (W = 16, c = 16, 2^18
+   events, the chains, the bucket scan, the NTT, the scan (every level
+   of a 2^20 prefix product), normalize (2^20 points) and the comb (2^20
+   scalars, G1 and G2) also beside the loop of launches that each
+   replaces.  The G1 bucket scan is also checked at the keccak path's C
+   MSM digit columns (W = 16, c = 16, 2^18
    positions, window 0 in {0, 1}, windows 1-15 all 0).
 3. reference: a small circuit (n = 2^3) proves on the card and with the
    plain versions on the CPU; the two proofs must be equal.
@@ -37,22 +46,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    on its public input x and be rejected on x + 1.  The kernel launch
    counts are reset just before setup and read after it and after each
    prove; every kernel entry of the path must have launched (all but the
-   elementwise double, whose chains now run in double_n and horner, and
-   the batched NTT, which only the mesh path runs), and
-   each prove must launch the bucket scan once per MSM (four G1, one
-   G2), the elementwise madd not at all (setup's comb encryption still
-   runs it) and the NTT kernel once per pass of its seven transforms.
+   elementwise double, madd and Fq product, whose work now runs in
+   double_n, horner, the bucket scan, the comb, mont_scan and normalize,
+   and the batched NTT, which only the mesh path runs); setup must
+   launch the comb and normalize once per point set (three G1, one G2),
+   the scan `scan_launches(n)` times for each of a set's two prefix
+   products and the elementwise madd and Fq product not at all; each prove must launch the bucket scan
+   once per MSM (four G1, one G2), the elementwise madd not at all and
+   the NTT kernel once per pass of its seven transforms.  A second setup
+   is then timed phase by phase (scalars, host sigma points, comb,
+   normalize) and must make the same CRS.
 5. keccak: the example `zksnark_tpu_torch.examples.keccak_proof` at full
    size (4-byte preimage, 232,016 gates, n = 2^18, 288 public inputs):
    its host stages timed, setup, two proves with distinct blindings,
    each verified on the digest bits and zero checkers and rejected with
-   a digest bit flipped; counts reset before setup, the same per-prove
-   launches required, every kernel entry but the elementwise double
-   launched.
+   a digest bit flipped; counts reset before setup, the same setup and
+   per-prove launches required, every kernel entry but the elementwise
+   double, madd and Fq product launched.
 6. cli: `python -m zksnark_tpu_torch.cli` setup -> prove -> verify on
    `simple.zk`, one process per command (exit 0 each), and verify with a
    wrong public input (exit 1); setup and prove together must launch
-   every kernel entry but the elementwise double.  The same four steps
+   every kernel entry but the elementwise double, madd and Fq
+   product.  The same four steps
    through the host flow (`--backend host`), over BN254 and over Z251,
    with the same exits, and `bench --backend host` (exit 0, one JSON
    report).
@@ -87,7 +102,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    per pass of its seven four-step transforms (both halves), the bucket
    scan once per MSM and no single-transform NTT or elementwise madd,
    and setup and the proves together every kernel entry of the mesh
-   path (all but the elementwise double and the single-transform NTT).
+   path (all but the elementwise double, madd and Fq product and the
+   single-transform NTT).
    The batched NTT pass is also checked in phase 2: small batches of
    every log_n from 1 to 12 and the path's four-step batches, forward
    and inverse, bit-exact against its plain version and against the
@@ -147,6 +163,9 @@ TPU_KERNELS = {
     "add_scan": "zksnark_tpu/ops/curve_pallas.py:281",
     "double_n": "zksnark_tpu/ops/curve_pallas.py:301",
     "horner": "zksnark_tpu/ops/curve_pallas.py:301",
+    "mont_scan": "zksnark_tpu/ops/montmul.py:42",
+    "normalize": "zksnark_tpu/ops/montmul.py:42",
+    "comb": "zksnark_tpu/ops/curve_pallas.py:291",
 }
 SOURCES = {
     "montmul": "zksnark_tpu_torch/csrc/montmul.cu",
@@ -158,12 +177,19 @@ SOURCES = {
     "add_scan": "zksnark_tpu_torch/csrc/point_scan.cu",
     "double_n": "zksnark_tpu_torch/csrc/point_ops.cu",
     "horner": "zksnark_tpu_torch/csrc/point_scan.cu",
+    "mont_scan": "zksnark_tpu_torch/csrc/mont_scan.cu",
+    "normalize": "zksnark_tpu_torch/csrc/mont_scan.cu",
+    "comb": "zksnark_tpu_torch/csrc/point_comb.cu",
 }
-# the elementwise double has no launch on the main path: the MSM's
-# doubling chains run in double_n and horner; the batched NTT runs on the
-# mesh path only, where every transform is batched
-OFF_PATH = ("double_g1", "double_g2", "ntt_fr_batched")
-MESH_OFF_PATH = ("double_g1", "double_g2", "ntt_fr")
+# the elementwise double, madd and Fq product have no launch on the main
+# path: the MSM's doubling chains run in double_n and horner, its mixed
+# adds in the bucket scan, setup's in the comb, batch_normalize's
+# products in mont_scan and normalize; the batched NTT runs on the mesh
+# path only, where every transform is batched
+OFF_PATH = ("double_g1", "double_g2", "madd_g1", "madd_g2", "montmul_fq",
+            "ntt_fr_batched")
+MESH_OFF_PATH = ("double_g1", "double_g2", "madd_g1", "madd_g2",
+                 "montmul_fq", "ntt_fr")
 MESH_ONLY = ("ntt_fr_batched",)
 # result name -> TPU_KERNELS / SOURCES key, where not the name's stem
 OP_OF = {"ntt_fr_batched": "ntt"}
@@ -247,6 +273,19 @@ def time_cuda(fn, iters: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, out
+
+
+def time_once(fn):
+    """(milliseconds of one call, CUDA events around it, no warm-up; its
+    output): for the slow plain versions at the path's shapes."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def limb_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -505,6 +544,8 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
             f"16 buckets, mixed and general adds, max |kernel - plain| = "
             f"{err}, edge table vs host curve {'ok' if sem else 'FAIL'}")
 
+    setup_chain_checks(dev, rng, n_rand, results)
+
     # -- the NTT passes ------------------------------------------------------
     from zksnark_tpu_torch.ops import ntt
 
@@ -538,6 +579,393 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
         f"default and uneven passes, max |kernel - plain| = {err}; 2^5 vs "
         f"host DFT {'ok' if sem else 'FAIL'}")
     ntt_batch_check(dev, seed, results)
+
+
+# ---------------------------------------------------------------------------
+# setup's chains: the prefix-product scan (K1) and the comb encryption (K2)
+# ---------------------------------------------------------------------------
+
+def comb_base(ops):
+    """The setup's comb base for the group of `ops` (the generator times
+    its ENCRYPT scale), as `device_setup` takes it."""
+    from zksnark_tpu_torch.curve import bn254 as hc
+    from zksnark_tpu_torch.field import params
+
+    if ops.elem_ndim == 1:
+        return hc.g1_scalar_mul(hc.G1_GEN_PT, params.ENCRYPT_G1_SCALE)
+    return hc.g2_scalar_mul(hc.G2_GEN, params.ENCRYPT_G2_SCALE)
+
+
+def loop_prefix_prod(ops, x):
+    """What the scan kernel replaced (`curve/jacobian.py` _prefix_prod
+    before it): 64 steps a level, one product launch per step over the
+    n/64 lanes, then one product of the carries (the JAX package's scan).
+    With plain `ops` (FQ_OPS, FQ2_OPS) it launches nothing."""
+    n = x.shape[0]
+    c = min(64, n)
+    b = -(-n // c)
+    elem = x.shape[1:]
+    if b * c != n:
+        x = torch.cat([x, ops.one((b * c - n,), x.device)])
+    grid = x.reshape((b, c) + elem).transpose(0, 1)
+    within = torch.empty((c, b) + elem, dtype=x.dtype, device=x.device)
+    acc = ops.one((b,), x.device)
+    for j in range(c):
+        acc = ops.mul(acc, grid[j])
+        within[j] = acc
+    within = within.transpose(0, 1)
+    if b > 1:
+        carry = loop_prefix_prod(ops, torch.cat([ops.one((1,), x.device),
+                                                 acc[:-1]]))
+        within = ops.mul(carry.unsqueeze(1), within)
+    return within.reshape((b * c,) + elem)[:n]
+
+
+def loop_normalize(ops, x, y, z, pre, suf, tinv):
+    """What the normalize kernel replaced (`batch_normalize`'s tail before
+    it): six product launches (for Fq2 with the Karatsuba's additions in
+    plain PyTorch around each) and three selects."""
+    kops = ops.on_kernel()
+    one = kops.one(z.shape[:1], z.device)
+    inf = kops.is_zero(z)
+    pre_ex = torch.cat([one[:1], pre[:-1]])
+    suf_ex = torch.cat([suf[1:], one[:1]])
+    zinv = kops.mul(kops.mul(pre_ex, suf_ex), tinv.unsqueeze(0))
+    zi2 = kops.mul(zinv, zinv)
+    zi3 = kops.mul(zi2, zinv)
+    return (kops.select(inf, one, kops.mul(x, zi2)),
+            kops.select(inf, one, kops.mul(y, zi3)),
+            kops.select(inf, torch.zeros_like(one), one))
+
+
+def loop_comb(ops, table, scalars):
+    """What the comb kernel replaced (`groth16/prover.py` _comb_encrypt
+    before it): the (m, 32) int64 digits, then per window three gathers
+    and one elementwise madd launch."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    digits = ck.comb_digits(scalars)
+    acc = jac.infinity(ops, (digits.shape[0],), scalars.device)
+    for w in range(digits.shape[1]):
+        d = digits[:, w]
+        acc = ck.madd(ops, acc, jac.JPoint(*(a[w][d] for a in table)))
+    return acc
+
+
+def scan_levels(n: int) -> list:
+    """The `mont_scan` launches of one `_prefix_prod` of n elements, in
+    order: (rows, row length, from carries, every prefix written)."""
+    from zksnark_tpu_torch.ops.montmul import scan_chunk
+
+    c = scan_chunk(n)
+    b = -(-n // c)
+    if b == 1:
+        return [(1, c, False, True)]
+    return [(b, c, False, False)] + scan_levels(b) + [(b, c, True, True)]
+
+
+def host_fmul(fq2: bool):
+    """The field product on host ints (Fq, or Fq2 as (c0, c1) pairs)."""
+    from zksnark_tpu_torch.field.limb import FQ_CTX
+
+    q = FQ_CTX.p
+    if not fq2:
+        return lambda a, b: a * b % q
+    return lambda a, b: ((a[0] * b[0] - a[1] * b[1]) % q,
+                         (a[0] * b[1] + a[1] * b[0]) % q)
+
+
+def setup_chain_checks(dev, rng, n_rand: int, results: dict) -> None:
+    """mont_scan and normalize (Fq, Fq2) and comb (G1, G2) against their
+    plain versions
+    on the same CUDA inputs, bit for bit: random grids and scalars, then
+    the edge cases, which must also equal the host arithmetic.  Scan:
+    rows of 1, 64, 300 (a thread's share uneven) and 2048 (the path's)
+    elements, with and without carries and prefixes, zero elements (1 in
+    16 of the random ones), rows of one element, one row of 64, a zero
+    and a one carry, and `_prefix_prod` of n_rand + 37 elements against
+    the loop it replaced run on plain products.  Normalize: random
+    points (Z = 0 one time in 16) and products, one point alone, and
+    batch_normalize of real points with other Z and infinities.  Comb:
+    n_rand random scalars and the scalars 0 (the identity: every digit 0), 1, 2, 255,
+    256, 2^248, r - 1, 2^256 - 1 (every digit 255) and one with zero
+    bytes between nonzero ones."""
+    from zksnark_tpu_torch.curve import bn254 as hc
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
+    from zksnark_tpu_torch.field.limb import FQ_CTX, FR_CTX
+    from zksnark_tpu_torch.groth16 import prover
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+    from zksnark_tpu_torch.ops import montmul as mm
+
+    q = FQ_CTX.p
+    for ops, fname, g in ((FQ_OPS, "fq", "g1"), (FQ2_OPS, "fq2", "g2")):
+        fq2 = ops.elem_ndim == 2
+        ecount = (2,) if fq2 else ()
+        kops = ops.on_kernel()
+
+        def mont(shape, zeros=0.0):
+            vals = rand_field(rng, q, shape + ecount)
+            if zeros:
+                vals[rng.random(shape) < zeros] = 0
+            return torch.from_numpy(FQ_CTX.to_mont_np(vals)).to(dev)
+
+        def scan_err(grid, carry, collect):
+            got = mm.mont_scan(ops, grid, carry, collect)
+            want = mm.mont_scan_plain(ops, grid, carry, collect)
+            torch.cuda.synchronize()
+            err = limb_err(got[0], want[0])
+            return max(err, limb_err(got[1], want[1])) if collect else err
+
+        err = 0
+        for c in (1, 64, 300, 2048):
+            grid = mont((n_rand // c, c), zeros=1 / 16)
+            carry = mont((n_rand // c,))
+            for cr in (None, carry):
+                for collect in (True, False):
+                    err = max(err, scan_err(grid, cr, collect))
+        x = mont((n_rand + 37,), zeros=1 / 4096)
+        got = jac._prefix_prod(kops, x)
+        want = loop_prefix_prod(ops, x)
+        torch.cuda.synchronize()
+        err = max(err, limb_err(got, want))
+        # edge rows, against host ints: rows of one element from carries
+        # (random, zero, one), and one row of 64 holding a zero and ones
+        host = host_fmul(fq2)
+        one_h = (1, 0) if fq2 else 1
+        e_grid = mont((3, 1))
+        e_carry = torch.cat([mont((1,)), torch.zeros_like(mont((1,))),
+                             ops.one((1,), dev)])
+        row = mont((1, 64))
+        row[0, 5] = 0
+        row[0, 9:20] = ops.one((11,), dev)
+        sem = True
+        for grid, carry in ((e_grid, e_carry), (row, None)):
+            err = max(err, scan_err(grid, carry, True))
+            got = mm.mont_scan(ops, grid, carry)[1]
+            g_h = FQ_CTX.from_mont_np(got.cpu().numpy())
+            x_h = FQ_CTX.from_mont_np(grid.cpu().numpy())
+            c_h = (FQ_CTX.from_mont_np(carry.cpu().numpy())
+                   if carry is not None else None)
+            for b in range(grid.shape[0]):
+                acc = one_h if c_h is None else (
+                    tuple(int(v) for v in c_h[b]) if fq2 else int(c_h[b]))
+                for j in range(grid.shape[1]):
+                    xv = (tuple(int(v) for v in x_h[b, j]) if fq2
+                          else int(x_h[b, j]))
+                    acc = host(acc, xv)
+                    gv = (tuple(int(v) for v in g_h[b, j]) if fq2
+                          else int(g_h[b, j]))
+                    sem &= gv == acc
+        name = f"mont_scan_{fname}"
+        results[name] = {"max_abs_err": err, "bit_exact": err == 0,
+                         "host_edge_ok": sem, "n_checked": 17 * n_rand + 104}
+        log(f"[kernels] {name}: grids of ~{n_rand} elements in rows of 1, "
+            f"64, 300 and 2048, carries and prefixes on and off, "
+            f"_prefix_prod of "
+            f"{n_rand + 37}, max |kernel - plain| = {err}, edge rows vs "
+            f"host {'ok' if sem else 'FAIL'}")
+
+        # -- the normalize pass: random points (Z = 0 one time in 16) and
+        # products, n = 1 (no neighbours); then batch_normalize of real
+        # points with other Z, infinity first and in the middle, against
+        # the host curve
+        nr = n_rand + 37
+        pts_r = [mont((nr,)), mont((nr,)), mont((nr,), zeros=1 / 16),
+                 mont((nr,)), mont((nr,))]
+        tinv = mont((1,))[0]
+        err = 0
+        for sl in (slice(0, nr), slice(0, 1), slice(7, 8)):
+            args = [a[sl] for a in pts_r] + [tinv]
+            got = mm.normalize(ops, *args)
+            want = mm.normalize_plain(ops, *args)
+            torch.cuda.synchronize()
+            err = max(err, max(limb_err(a, b) for a, b in zip(got, want)))
+        gen = hc.G2_GEN if fq2 else hc.G1_GEN_PT
+        smul = hc.g2_scalar_mul if fq2 else hc.g1_scalar_mul
+        hpts = [None, smul(gen, 5), smul(gen, 7), None, smul(gen, 11)]
+        lams = [1, 3, 5, 1, 7]
+        zero_h = (0, 0) if fq2 else 0
+
+        def scale(v, k):                 # v * k for v in Fq or Fq2
+            return tuple(c * k % q for c in v) if fq2 else v * k % q
+
+        xs = [zero_h if h is None else scale(h[0], lam * lam)
+              for h, lam in zip(hpts, lams)]
+        ys = [zero_h if h is None else scale(h[1], lam ** 3)
+              for h, lam in zip(hpts, lams)]
+        zs = [zero_h if h is None else ((lam, 0) if fq2 else lam)
+              for h, lam in zip(hpts, lams)]
+        jp = jac.JPoint(*(torch.from_numpy(ops.to_mont_np(v)).to(dev)
+                          for v in (xs, ys, zs)))
+        norm = jac.batch_normalize(ops, jp)
+        aff = [None if a is None else tuple(map(tuple, a)) if fq2 else a
+               for a in jac.to_affine_np(ops, norm)]
+        zset = {tuple(int(c) for c in np.asarray(v).reshape(-1))
+                for v in FQ_CTX.from_mont_np(norm.z.cpu().numpy())}
+        one_z = (1, 0) if fq2 else (1,)
+        sem = aff == hpts and zset <= {one_z, (0,) * len(one_z)}
+        name = f"normalize_{fname}"
+        results[name] = {"max_abs_err": err, "bit_exact": err == 0,
+                         "host_edge_ok": sem, "n_checked": nr + 2 + 5}
+        log(f"[kernels] {name}: {nr} random points and products, n = 1, "
+            f"max |kernel - plain| = {err}; batch_normalize of 5 real "
+            f"points with other Z and infinities vs host curve "
+            f"{'ok' if sem else 'FAIL'}")
+
+        # -- the comb -------------------------------------------------------
+        r = FR_CTX.p
+        base = comb_base(ops)
+        table = prover._comb_table(ops, base, dev)
+        edge = [0, 1, 2, 255, 256, 1 << 248, r - 1, (1 << 256) - 1,
+                sum(0x5A << (24 * i) for i in range(11))]
+        ints = np.concatenate([rand_field(rng, r, (n_rand,)), edge])
+        scalars = torch.from_numpy(np.frombuffer(b"".join(
+            int(v).to_bytes(32, "little") for v in ints),
+            dtype="<i4").reshape(-1, 8).copy()).to(dev)
+        want = ck.comb_plain(ops, table, scalars)
+        got = ck.comb(ops, table, scalars)
+        torch.cuda.synchronize()
+        err = max(limb_err(a, b) for a, b in zip(got, want))
+        aff = jac.to_affine_np(ops, jac.JPoint(*(a[n_rand:] for a in got)))
+        smul = hc.g1_scalar_mul if not fq2 else hc.g2_scalar_mul
+        sem = True
+        for a, k in zip(aff, edge):
+            if fq2 and a is not None:
+                a = tuple(map(tuple, a))
+            sem &= a == (smul(base, k % r) if k % r else None)
+        name = f"comb_{g}"
+        results[name] = {"max_abs_err": err, "bit_exact": err == 0,
+                         "host_edge_ok": sem, "n_checked": len(ints)}
+        log(f"[kernels] {name}: {len(ints)} scalars, max |kernel - plain| "
+            f"= {err}, edge scalars vs host curve {'ok' if sem else 'FAIL'}")
+
+
+# the path's comb: 2^20 scalars (the square chain's xi, xi_t, sum_delta
+# and the G2 xi); its scans: every level of a 2^20 _prefix_prod
+COMB_M = 1 << 20
+SCAN_N = 1 << 20
+
+
+def setup_chain_timing(dev, seed: int, results: dict) -> None:
+    """Setup's mont_scan, normalize and comb at the main path's shapes,
+    each entry beside its plain version and the loop of launches it
+    replaced, on the same random CUDA inputs, timed and compared bit for
+    bit.  mont_scan: every
+    level of one `_prefix_prod` of 2^20 elements (the row's ms, plain_ms
+    and bound_ms sum them), and the whole chain (kernel launches and the
+    glue between them) beside the loop.  normalize: 2^20 points.  comb:
+    2^20 scalars."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
+    from zksnark_tpu_torch.groth16 import prover
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+    from zksnark_tpu_torch.ops import montmul as mm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rnd(shape):
+        t = torch.randint(-(1 << 31), 1 << 31, tuple(shape) + (8,),
+                          dtype=torch.int64, device=dev, generator=gen)
+        t[..., 7] &= 0x0FFFFFFF            # below both moduli
+        return t.to(torch.int32)
+
+    for ops, fname, g in ((FQ_OPS, "fq", "g1"), (FQ2_OPS, "fq2", "g2")):
+        fq2 = ops.elem_ndim == 2
+        ecount = (2,) if fq2 else ()
+        elem_b = 32 * (2 if fq2 else 1)
+        mul_ops = IMAD_PER_MUL * (3 if fq2 else 1) + (
+            5 * OPS_PER_ADD if fq2 else 0)
+        per_shape = []
+        for b, c, from_carry, collect in scan_levels(SCAN_N):
+            grid = rnd((b, c) + ecount)
+            carry = rnd((b,) + ecount) if from_carry else None
+            ms, got = time_cuda(
+                lambda: mm.mont_scan(ops, grid, carry, collect), 20)
+            plain_ms, want = time_cuda(
+                lambda: mm.mont_scan_plain(ops, grid, carry, collect), 2)
+            err = limb_err(got[0], want[0])
+            if collect:
+                err = max(err, limb_err(got[1], want[1]))
+            byt = elem_b * (b * c + b * (2 if from_carry else 1)
+                            + (b * c if collect else 0))
+            bnd = bound(byt, b * c * mul_ops)
+            per_shape.append({"shape": [b, c, int(from_carry), int(collect)],
+                              "ms": ms, "plain_ms": plain_ms, "err": err,
+                              **bnd})
+            log(f"[timing] mont_scan_{fname} {per_shape[-1]['shape']}: "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}); max |kernel "
+                f"- plain| = {err}")
+        x = rnd((SCAN_N,) + ecount)
+        kops = ops.on_kernel()
+        chain_ms, got = time_cuda(lambda: jac._prefix_prod(kops, x), 10)
+        loop_ms, old = time_cuda(lambda: loop_prefix_prod(kops, x), 3)
+        err = limb_err(got, old)
+        name = f"mont_scan_{fname}"
+        tb = sum(p["bound_ms"] for p in per_shape)
+        results[name].update(
+            shape=[p["shape"] for p in per_shape],
+            ms=sum(p["ms"] for p in per_shape), chain_ms=chain_ms,
+            loop_ms=loop_ms, plain_ms=sum(p["plain_ms"] for p in per_shape),
+            path_shape_err=max([err] + [p["err"] for p in per_shape]),
+            checked_shapes=[p["shape"] for p in per_shape] + [[SCAN_N]],
+            bound_ms=tb, bound_by=max(per_shape,
+                                      key=lambda p: p["bound_ms"])["bound_by"],
+            per_shape=per_shape)
+        log(f"[timing] {name}, one _prefix_prod of {SCAN_N}: kernel "
+            f"{results[name]['ms']:.4f} ms over {len(per_shape)} launches "
+            f"(the chain with its glue {chain_ms:.4f} ms), loop of "
+            f"launches {loop_ms:.3f} ms, plain {results[name]['plain_ms']:.3f}"
+            f" ms, bound {tb:.5f} ms; max |chain - loop| = {err}")
+
+        # -- the normalize pass over 2^20 points -----------------------------
+        args = [rnd((SCAN_N,) + ecount) for _ in range(5)] + [rnd(ecount)]
+        ms, got = time_cuda(lambda: mm.normalize(ops, *args), 20)
+        loop_ms, old = time_cuda(lambda: loop_normalize(ops, *args), 5)
+        plain_ms, want = time_cuda(lambda: mm.normalize_plain(ops, *args), 2)
+        err = max(limb_err(a, b) for pair in (zip(got, want), zip(old, want))
+                  for a, b in pair)
+        del got, old, want
+        bnd = bound(8 * elem_b * SCAN_N, 6 * mul_ops * SCAN_N)
+        name = f"normalize_{fname}"
+        results[name].update(
+            shape=[SCAN_N], ms=ms, loop_ms=loop_ms, plain_ms=plain_ms,
+            path_shape_err=err, checked_shapes=[SCAN_N], **bnd)
+        log(f"[timing] {name} n={SCAN_N}: kernel {ms:.4f} ms, loop of "
+            f"launches {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); max |kernel - "
+            f"plain|, |loop - plain| = {err}")
+
+        # -- the comb at 2^20 scalars -----------------------------------------
+        table = prover._comb_table(ops, comb_base(ops), dev)
+        scalars = rnd((COMB_M,))               # below 2^252 < r
+        ms, got = time_cuda(lambda: ck.comb(ops, table, scalars), 5)
+        loop_ms, old = time_cuda(lambda: loop_comb(ops, table, scalars), 2)
+        plain_ms, want = time_once(
+            lambda: ck.comb_plain(ops, table, scalars))
+        err = max(limb_err(a, b) for pair in (zip(got, want), zip(old, want))
+                  for a, b in pair)
+        del got, old, want
+        cnt = CountingOps(ops)             # one madd: random P + T[0, 1]
+        ck.madd_plain(cnt, jac.JPoint(*(rnd((1,) + ecount)
+                                        for _ in range(3))),
+                      jac.JPoint(*(a[0, 1:2] for a in table)))
+        add_ops = cnt.muls * IMAD_PER_MUL + cnt.adds * OPS_PER_ADD
+        byt = COMB_M * (32 + 3 * elem_b) + 32 * 256 * 3 * elem_b
+        bnd = bound(byt, COMB_M * 32 * add_ops)
+        name = f"comb_{g}"
+        results[name].update(
+            shape=[COMB_M], ms=ms, loop_ms=loop_ms,
+            plain_ms=plain_ms, path_shape_err=err, checked_shapes=[COMB_M],
+            fq_muls=cnt.muls, fq_adds=cnt.adds, **bnd)
+        log(f"[timing] {name} m={COMB_M}: kernel {ms:.4f} ms, loop of "
+            f"launches {loop_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}; 32 madds of {cnt.muls} Fq muls, "
+            f"{cnt.adds} Fq adds); max |kernel - plain|, |loop - plain| = "
+            f"{err}")
 
 
 def rand_limbs(gen, shape) -> torch.Tensor:
@@ -753,17 +1181,19 @@ def time_phase(dev, seed: int, results: dict) -> None:
         bucket_timing(ops, g, lambda n: rnd(n, FQ_CTX, elem), gen, results)
         if g == "g1":
             bucket_c_msm(lambda n: rnd(n, FQ_CTX, elem), gen, results)
+    setup_chain_timing(dev, seed, results)
     ntt_timing(rnd(1 << NTT_LOG_N, FR_CTX), results)
     ntt_batch_timing(gen, results)
 
 
 # shapes: montmul_fr at the prove's elementwise products (n^-1, coset,
 # vanishing, from_mont: 2^20; the NTT stages' 2^19 now run inside the NTT
-# kernel); montmul_fq at a batch_normalize prefix-product step (2^20 /
-# 64); madd at setup's comb encryption (2^20 scalars, one madd per 8-bit
-# digit; the MSM's scan steps now run inside the bucket scan); add at the
-# MSM bucket ends (16 windows x 2^16 buckets); double at the former Abel
-# step (one point per window)
+# kernel); montmul_fq and madd at their former shapes on the path, a
+# step of batch_normalize's prefix products (2^20 / 64) and of setup's
+# comb encryption (2^20 scalars), now run by mont_scan, normalize and
+# comb (the bucket scan runs the MSM's mixed adds); add at the MSM bucket
+# ends (16 windows x 2^16 buckets); double at the former Abel step (one
+# point per window)
 PATH_SHAPES = {"montmul_fr": 1 << 20, "montmul_fq": 1 << 14,
                "madd": 1 << 20, "add": 1 << 20, "double": 16}
 # the elementwise add's shapes in one 2^20 MSM (c = 16): bucket ends,
@@ -1176,15 +1606,17 @@ def ptxas_summary(log_text: str) -> list:
     (its name and template arguments read off the mangled name), its
     registers and its spills."""
     def kernel_name(mangled):
-        # the length-prefixed identifier that ends in "kernel" (a length
-        # may follow digits of the namespace's hash: try every split)
+        # the shortest length-prefixed identifier that ends in "kernel" (a
+        # length may follow digits of the namespace's hash, and digits of
+        # the hash may read as a length: try every split)
+        found = [mangled]
         for m in re.finditer(r"\d+", mangled):
             for i in range(m.start(), m.end()):
                 size = int(mangled[i:m.end()])
                 ident = mangled[m.end():m.end() + size]
                 if len(ident) == size and ident.endswith("kernel"):
-                    return ident
-        return mangled
+                    found.append(ident)
+        return min(found, key=len)
 
     out, name, spill = [], "?", ""
     for line in log_text.splitlines():
@@ -1261,6 +1693,35 @@ def reference_phase(dev) -> None:
     log("[reference] card proof == plain CPU proof")
 
 
+def setup_expect(crs) -> dict:
+    """The launches of the single-device `device_setup` that made `crs`:
+    per point set one comb launch and one batch_normalize (its prefix and
+    suffix scans, `scan_launches` each, and one normalize pass); no
+    elementwise madd and no elementwise Fq product."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+
+    n1 = [p.z.shape[0] for p in (crs.xi_g1, crs.xi_t_g1, crs.sum_delta_g1)]
+    return {"comb_g1": 3, "comb_g2": 1, "madd_g1": 0, "madd_g2": 0,
+            "mont_scan_fq": sum(2 * jac.scan_launches(n) for n in n1),
+            "mont_scan_fq2": 2 * jac.scan_launches(crs.xi_g2.z.shape[0]),
+            "normalize_fq": 3, "normalize_fq2": 1, "montmul_fq": 0}
+
+
+def check_setup(label: str, launches: dict, crs) -> None:
+    want = setup_expect(crs)
+    wrong = {k: launches[k] for k, v in want.items() if launches[k] != v}
+    if wrong:
+        raise SystemExit(f"{label} setup launched {wrong}, expected "
+                         f"{ {k: want[k] for k in wrong} }")
+    log(f"[{label}] setup launches as expected: {want}")
+
+
+def same_points(a, b) -> bool:
+    return all(torch.equal(x, y)
+               for name in ("xi_g1", "xi_t_g1", "sum_delta_g1", "xi_g2")
+               for x, y in zip(getattr(a, name), getattr(b, name)))
+
+
 def path_phase(dev, log_n: int, n_proves: int) -> dict:
     from zksnark_tpu_torch.bench import synthetic_square_chain
     from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
@@ -1297,6 +1758,7 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
     setup_peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[path] device_setup: {setup_s:.2f} s; launches {c_setup}; peak "
         f"device memory {setup_peak:.2f} GiB")
+    check_setup("path", c_setup, crs)
     # per prove: the bucket scan once per MSM, no elementwise madd, the
     # NTT kernel once per pass of each of the seven transforms
     expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
@@ -1344,7 +1806,25 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
     zero = [k for k, v in total.items() if v == 0 and k not in OFF_PATH]
     if zero:
         raise SystemExit(f"kernels never launched on the main path: {zero}")
+
+    # where setup's time goes: a second setup, each phase ended by a
+    # synchronize; it must make the same CRS
+    from zksnark_tpu_torch.utils.profiling import PhaseTimer
+
+    timer = PhaseTimer()
+    t0 = time.time()
+    crs2 = prover.device_setup(dqap, trapdoor=(11, 22, 33, 44, 55),
+                               timer=timer)
+    torch.cuda.synchronize()
+    setup2_s = time.time() - t0
+    if not same_points(crs, crs2) or crs.sigmag1 != crs2.sigmag1:
+        raise SystemExit("path: the timed setup made another CRS")
+    del crs2
+    log(f"[path] setup breakdown (a second device_setup, each phase ended "
+        f"by a synchronize; the same CRS): {setup2_s:.3f} s; "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases.items()))
     return {"launches": total, "setup_s": setup_s, "proves": per_prove,
+            "setup_phases_s": dict(timer.phases), "setup2_s": setup2_s,
             "peak_gib": peak, "state": (dqap, crs, wit)}
 
 
@@ -1417,6 +1897,7 @@ def keccak_phase(dev, n_bytes: int, n_proves: int) -> dict:
     log(f"[keccak] device_setup n={dqap.n}: {setup_s:.2f} s; launches "
         f"{c_setup}; peak device memory {setup_peak:.2f} GiB (resident "
         f"before it {base:.2f} GiB)")
+    check_setup("keccak", c_setup, crs)
     expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
               "madd_g2": 0, "ntt_fr": 7 * len(dqap.domain.widths)}
     be = BN254Backend()
@@ -1824,7 +2305,7 @@ def point_ops_plain():
     """Route every point op of `ops.curve_kernels` to its plain version on
     CUDA tensors too, for the duration: the module's `_device` switch,
     which each of its wrappers asks (madd, add, double and the chains
-    bucket_scan, add_scan, double_n, horner), answers "cpu".  It reroutes
+    bucket_scan, add_scan, double_n, horner, comb), answers "cpu".  It reroutes
     nothing else: field products through `ops.montmul` and the NTT still
     launch their kernels, so a caller checks the counts.  An MSM over
     FQ_OPS (plain limb products) launches none."""
@@ -2188,9 +2669,10 @@ def profiled(fn) -> tuple:
 
 def profile_phase(dqap, crs, wit, table_path: str) -> None:
     """Where a prove's time goes: its stages timed one by one (each ends
-    in a synchronize), then one whole prove under torch.profiler (device
-    time by kernel, and the device's idle share of the wall time).  The
-    profiler's full table is written to `table_path`."""
+    in a synchronize), then one whole setup and one whole prove under
+    torch.profiler (device time by kernel, and the device's idle share of
+    the wall time).  The prove's full profiler table is written to
+    `table_path`."""
     from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
     from zksnark_tpu_torch.field.limb import FR_CTX
     from zksnark_tpu_torch.groth16 import prover
@@ -2224,6 +2706,14 @@ def profile_phase(dqap, crs, wit, table_path: str) -> None:
         timed(label, lambda: msm.msm_windowed(FQ_OPS, pp, ss, wb, True))
     timed("msm G2 B (v)", lambda: msm.msm_windowed(FQ2_OPS, crs.xi_g2, v,
                                                     wb, True))
+
+    wall_ms, busy_ms, rows, _ = profiled(
+        lambda: prover.device_setup(dqap, trapdoor=(11, 22, 33, 44, 55)))
+    log(f"[profile] one setup under the profiler: wall {wall_ms:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}")
+    for key, ms, count in rows[:10]:
+        log(f"[profile]   {ms:9.2f} ms {count:6d}x  {key[:90]}")
 
     wall_ms, busy_ms, rows, prof = profiled(
         lambda: prover.device_prove(dqap, crs, wit, blinding=(5, 6)))
@@ -2327,11 +2817,12 @@ def main(argv=None) -> int:
             "launches_per_keccak_prove":
                 keccak["proves"][-1]["launches"][name],
             **({"c_msm": r["c_msm"]} if "c_msm" in r else {}),
-            **({"loop_ms": r["loop_ms"]} if "loop_ms" in r else {}),
+            **{k: r[k] for k in ("loop_ms", "chain_ms") if k in r},
             **({"per_shape": r["per_shape"]} if "per_shape" in r else {}),
         })
-    log(f"[path] n=2^{log_n}: setup {path['setup_s']:.2f} s, prove "
-        f"ms {[round(p['ms'], 1) for p in path['proves']]}")
+    log(f"[path] n=2^{log_n}: setup {path['setup_s']:.2f} s (phases "
+        f"{ {k: round(v, 4) for k, v in path['setup_phases_s'].items()} } "
+        f"s), prove ms {[round(p['ms'], 1) for p in path['proves']]}")
     ks = keccak["summary"]
     log(f"[keccak] n=2^{ks['n'].bit_length() - 1}: setup "
         f"{ks['setup_s']:.2f} s, prove ms "

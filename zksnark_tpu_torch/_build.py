@@ -33,6 +33,8 @@ SOURCES = {
     "point_ops.cu": ("bn254_field.cuh", "point_core.cuh"),
     "point_scan.cu": ("bn254_field.cuh", "point_core.cuh"),
     "ntt.cu": ("bn254_field.cuh",),
+    "mont_scan.cu": ("bn254_field.cuh",),
+    "point_comb.cu": ("bn254_field.cuh", "point_core.cuh"),
 }
 
 _P = ctypes.c_void_p
@@ -52,6 +54,9 @@ SIGNATURES = {
         "zk_point_horner": [_I] + [_P] * 6 + [_LL, _I, _I, _P],
     },
     "ntt.cu": {"zk_ntt_pass": [_P] * 3 + [_I] * 6 + [_P]},
+    "mont_scan.cu": {"zk_mont_scan": [_I] + [_P] * 4 + [_LL, _I, _P],
+                     "zk_normalize": [_I] + [_P] * 9 + [_LL, _P]},
+    "point_comb.cu": {"zk_point_comb": [_I] + [_P] * 7 + [_LL, _P]},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -5,7 +5,7 @@ base-field Montgomery product as a parameter.  `FQ_OPS` / `FQ2_OPS` use
 the plain PyTorch one (`field.limb.mont_mul`): the plain versions of the
 point kernels (`ops/curve_kernels.py`) are written over them.
 `on_kernel()` gives the same field with its products on the montmul
-kernel K1 (`ops.montmul.mont_mul`), for the device path's field work.
+kernel K1 (`ops.montmul.mont_mul`), one launch a product.
 
 Element layout:
     Fq:  (..., 8)      int32 u32-limb Montgomery residues

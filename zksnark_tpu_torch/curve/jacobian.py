@@ -8,7 +8,9 @@ complete add resolves every special case with masks.
 `add` / `madd` / `double` go to the CUDA kernels K2-K4 on CUDA tensors
 and to their plain versions on CPU tensors (`ops/curve_kernels.py`).
 `batch_normalize` brings a batch to affine-or-infinity (Z in {0, one})
-with one host inversion; its field products run on the montmul kernel K1.
+with one host inversion; its prefix products run on the K1 chain kernel
+(`ops.montmul.mont_scan`), its pass over the points on
+`ops.montmul.normalize`.
 """
 
 from __future__ import annotations
@@ -72,34 +74,48 @@ def madd(ops, p: JPoint, q: JPoint, out=None) -> JPoint:
 
 
 def _prefix_prod(ops, x):
-    """Inclusive prefix products of a (n, elem) field array: two-level
-    chunked scan (64 sequential positions, n/64 lanes), ~2n products."""
+    """Inclusive prefix products of a (n, elem) field array, as a (b, c)
+    grid of rows (c = `ops.montmul.scan_chunk(n)`, the tail padded with
+    ones), each pass one `mont_scan` launch: the rows' totals, then (b >
+    1) the rows' exclusive carries one level up, then every prefix from
+    its row's carry; three launches for SCAN_ROW < n <= SCAN_ROW^2.
+    Products are canonical residues, so any chunking gives the JAX
+    package's bytes (its c = 64 scan, `jacobian._prefix_prod`)."""
+    from ..ops.montmul import mont_scan, scan_chunk
+
     n = x.shape[0]
-    c = min(64, n)
+    c = scan_chunk(n)
     b = -(-n // c)
     elem = x.shape[1:]
     if b * c != n:
         x = torch.cat([x, ops.one((b * c - n,), x.device)])
-    grid = x.reshape((b, c) + elem).transpose(0, 1)        # (c, b, elem)
-    within = torch.empty((c, b) + elem, dtype=x.dtype, device=x.device)
-    acc = ops.one((b,), x.device)
-    for j in range(c):
-        acc = ops.mul(acc, grid[j])
-        within[j] = acc
-    within = within.transpose(0, 1)                        # (b, c, elem)
+    grid = x.reshape((b, c) + elem)
+    carry = None
     if b > 1:
-        shifted = torch.cat([ops.one((1,), x.device), acc[:-1]])
-        carry = _prefix_prod(ops, shifted)                 # exclusive carries
-        within = ops.mul(carry.unsqueeze(1), within)
+        totals, _ = mont_scan(ops, grid, collect=False)
+        carry = _prefix_prod(ops, torch.cat([ops.one((1,), x.device),
+                                             totals[:-1]]))
+    _, within = mont_scan(ops, grid, carry)
     return within.reshape((b * c,) + elem)[:n]
+
+
+def scan_launches(n: int) -> int:
+    """`mont_scan` launches of one `_prefix_prod` of n elements."""
+    from ..ops.montmul import scan_chunk
+
+    b = -(-n // scan_chunk(n))
+    return 1 if b == 1 else 2 + scan_launches(b)
 
 
 @torch.inference_mode()
 def batch_normalize(ops, p: JPoint) -> JPoint:
     """Batched Jacobian -> affine-or-infinity (Z in {0, one}) with ONE
     field inversion: Montgomery's trick as two prefix-product scans plus
-    a single host inverse.  Establishes the precondition for `madd`."""
-    ops = ops.on_kernel()
+    a single host inverse, then one pass over the points for Z^-1, X Z^-2
+    and Y Z^-3 (`ops.montmul.normalize`).  Establishes the precondition
+    for `madd`."""
+    from ..ops.montmul import normalize
+
     e = ops.elem_ndim
     batch_shape = p.z.shape[:p.z.dim() - e]
     n = 1
@@ -131,16 +147,7 @@ def batch_normalize(ops, p: JPoint) -> JPoint:
             "has a malformed Z encoding (Z = 0 mod p but nonzero "
             "digits), e.g. from a corrupt checkpoint") from err
     tinv_m = torch.from_numpy(ops.to_mont_np([tinv])[0]).to(dev)
-
-    one = ops.one(pre.shape[:1], dev)
-    pre_ex = torch.cat([one[:1], pre[:-1]])          # prod_{j<i} z_j
-    suf_ex = torch.cat([suf[1:], one[:1]])           # prod_{j>i} z_j
-    zinv = ops.mul(ops.mul(pre_ex, suf_ex), tinv_m.unsqueeze(0))
-    zi2 = ops.mul(zinv, zinv)
-    zi3 = ops.mul(zi2, zinv)
-    x = ops.select(inf, one, ops.mul(flat.x, zi2))
-    y = ops.select(inf, one, ops.mul(flat.y, zi3))
-    zz = ops.select(inf, torch.zeros_like(one), one)
+    x, y, zz = normalize(ops, flat.x, flat.y, flat.z, pre, suf, tinv_m)
     return JPoint(*(a.reshape(batch_shape + a.shape[1:])
                     for a in (x, y, zz)))
 

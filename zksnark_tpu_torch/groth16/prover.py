@@ -6,7 +6,8 @@ unused slots hold all-zero constraint rows.
 
   setup   host powers of the trapdoor x -> one iNTT for the Lagrange
           values -> a segmented field sum per wire -> fixed-base comb
-          encryptions (one mixed add per 8-bit digit) -> batch_normalize
+          encryptions (one comb launch: a mixed add per 8-bit digit) ->
+          batch_normalize (prefix products on the scan kernel)
   prove   witness x R^2 -> ELL gather-multiply-sum -> iNTTs -> coset-NTT
           quotient -> five Pippenger MSMs (four G1, one G2) -> host
           assembly of A, B, C
@@ -30,6 +31,7 @@ drawn on rank 0 and shared.
 
 from __future__ import annotations
 
+import contextlib
 import random as _random
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -45,6 +47,7 @@ from ..curve.jacobian import JPoint
 from ..field import params
 from ..field.limb import FR_CTX, add as l_add
 from ..frontend.r1cs import R1CS
+from ..ops import curve_kernels as ck
 from ..ops import msm as msmod
 from ..ops import ntt as nttmod
 from ..ops import scans
@@ -192,29 +195,16 @@ def _comb_table(ops, base_affine, device) -> JPoint:
     return table
 
 
-def _digits8(scalars_std: torch.Tensor) -> torch.Tensor:
-    """(m, 8) standard-form limbs -> (m, 32) int64 little-endian bytes
-    (with 8-bit windows the comb windows ARE the bytes)."""
-    w = scalars_std.to(torch.int64) & 0xFFFFFFFF
-    sh = torch.arange(0, 32, 8, device=w.device)
-    return ((w.unsqueeze(-1) >> sh) & 0xFF).reshape(w.shape[0], 4 * L)
-
-
-def _comb_encrypt(ops, table: JPoint, scalars_std: torch.Tensor) -> JPoint:
-    """E(s_i) = s_i * base via the comb table: one gather + one mixed add
-    per 8-bit digit window (32 adds per element)."""
-    digits = _digits8(scalars_std)
-    acc = jac.infinity(ops, (digits.shape[0],), scalars_std.device)
-    for w in range(digits.shape[1]):
-        d = digits[:, w]
-        pt = JPoint(table.x[w][d], table.y[w][d], table.z[w][d])
-        # comb-table entries are affine-or-infinity -> mixed add
-        acc = jac.madd(ops, acc, pt)
-    return acc
+def _phase(timer, name: str, device):
+    """`timer.phase(name)` ended by a synchronize of `device`'s card, or
+    nothing when there is no timer."""
+    if timer is None:
+        return contextlib.nullcontext()
+    return timer.phase(name, block_on=torch.empty(0, device=device))
 
 
 def _fixed_base_encrypt(ops, base_affine, scalars_std: torch.Tensor,
-                        mesh=None) -> JPoint:
+                        mesh=None, timer=None) -> JPoint:
     """Batched fixed-base scalar-mul E(s_i) = s_i * base, normalized so
     every prover MSM can run mixed adds.
 
@@ -222,20 +212,31 @@ def _fixed_base_encrypt(ops, base_affine, scalars_std: torch.Tensor,
     (padded with zeros to a multiple of the mesh size) against the
     replicated table, and the stripes are all-gathered.  Affine
     coordinates are unique, so every rank gets the single-device result
-    bit for bit."""
-    table = _comb_table(ops, base_affine, scalars_std.device)
+    bit for bit.
+
+    The encryption is one launch of the comb kernel (`ops.curve_kernels.
+    comb`: 32 mixed adds a scalar, one per 8-bit window).  timer: a
+    `utils.profiling.PhaseTimer` that gets the comb, normalize and (mesh)
+    gather phases."""
+    dev = scalars_std.device
+    table = _comb_table(ops, base_affine, dev)
     n = scalars_std.shape[0]
-    if mesh is None or n == 0:
-        return jac.batch_normalize(ops, _comb_encrypt(ops, table,
-                                                      scalars_std))
+    sharded = mesh is not None and n > 0
+    if sharded:
+        m = n + (-n) % mesh.size
+        padded = torch.cat([scalars_std, scalars_std.new_zeros((m - n, L))])
+        per = m // mesh.size
+        scalars_std = padded[mesh.rank * per:(mesh.rank + 1) * per]
+    with _phase(timer, "comb", dev):
+        pts = ck.comb(ops, table, scalars_std)
+    with _phase(timer, "normalize", dev):
+        pts = jac.batch_normalize(ops, pts)
+    if not sharded:
+        return pts
     from ..parallel.msm_sharded import all_gather_points
 
-    m = n + (-n) % mesh.size
-    padded = torch.cat([scalars_std, scalars_std.new_zeros((m - n, L))])
-    per = m // mesh.size
-    local = padded[mesh.rank * per:(mesh.rank + 1) * per]
-    part = jac.batch_normalize(ops, _comb_encrypt(ops, table, local))
-    pts = all_gather_points(mesh, ops, part)         # (d, per, ...)
+    with _phase(timer, "gather", dev):
+        pts = all_gather_points(mesh, ops, pts)      # (d, per, ...)
     return JPoint(*(a.reshape((m,) + a.shape[2:])[:n] for a in pts))
 
 
@@ -283,6 +284,7 @@ def device_setup(
     trapdoor: Optional[Tuple[int, int, int, int, int]] = None,
     rng=None,
     mesh=None,
+    timer=None,
 ) -> DeviceCRS:
     """CRS generation on the device that holds `dqap`: one iNTT for the
     Lagrange values, a segmented field sum for the per-wire combination,
@@ -290,7 +292,11 @@ def device_setup(
     work is O(sqrt n) bigint powers + O(input) sigma points.
 
     mesh: the comb encryptions run sharded over the mesh's ranks (see
-    `_fixed_base_encrypt`); every rank returns the whole CRS."""
+    `_fixed_base_encrypt`); every rank returns the whole CRS.
+
+    timer: a `utils.profiling.PhaseTimer` that gets the setup's phases
+    (the scalars, the host sigma points, comb, normalize, mesh gather),
+    each ended by a synchronize; None times nothing."""
     dev = dqap.device
     f = FR_CTX.p
     if trapdoor is None:
@@ -315,44 +321,49 @@ def device_setup(
     def to_m(vals):
         return torch.from_numpy(FR_CTX.to_mont_np(vals)).to(dev)
 
-    xi_mont = mont_mul(FR_CTX, to_m(hi).unsqueeze(1),
-                       to_m(lo).unsqueeze(0)).reshape(n, L)
     t_x = (pow(x, n, f) - 1) % f
     gamma_inv = pow(gamma, -1, f)
     delta_inv = pow(delta, -1, f)
+    with _phase(timer, "scalars", dev):
+        xi_mont = mont_mul(FR_CTX, to_m(hi).unsqueeze(1),
+                           to_m(lo).unsqueeze(0)).reshape(n, L)
+        xi_std, xi_t_std, sum_delta_std = _setup_scalars(
+            dqap.domain, dqap.num_wires, (dqap.u, dqap.v, dqap.w), xi_mont,
+            to_m([alpha])[0], to_m([beta])[0],
+            to_m([t_x * delta_inv % f])[0], to_m([delta_inv])[0])
 
-    xi_std, xi_t_std, sum_delta_std = _setup_scalars(
-        dqap.domain, dqap.num_wires, (dqap.u, dqap.v, dqap.w), xi_mont,
-        to_m([alpha])[0], to_m([beta])[0], to_m([t_x * delta_inv % f])[0],
-        to_m([delta_inv])[0])
+    with _phase(timer, "sigma (host)", dev):
+        g1_base = hc.g1_scalar_mul(hc.G1_GEN_PT, params.ENCRYPT_G1_SCALE)
+        g2_base = hc.g2_scalar_mul(hc.G2_GEN, params.ENCRYPT_G2_SCALE)
 
-    g1_base = hc.g1_scalar_mul(hc.G1_GEN_PT, params.ENCRYPT_G1_SCALE)
-    g2_base = hc.g2_scalar_mul(hc.G2_GEN, params.ENCRYPT_G2_SCALE)
+        # small host parts: sum_gamma needs the first input+1 combined
+        # values
+        head_ints = FR_CTX.from_limbs_np(
+            sum_delta_std[:dqap.input + 1].cpu().numpy())
+        sum_gamma = [
+            hc.g1_scalar_mul(g1_base, int(c) * delta % f * gamma_inv % f)
+            for c in head_ints
+        ]
+        sigmag1 = SigmaG1(
+            alpha=hc.g1_scalar_mul(g1_base, alpha),
+            beta=hc.g1_scalar_mul(g1_base, beta),
+            delta=hc.g1_scalar_mul(g1_base, delta),
+            xi=None, sum_gamma=sum_gamma, sum_delta=None, xi_t=None)
+        sigmag2 = SigmaG2(
+            beta=hc.g2_scalar_mul(g2_base, beta),
+            gamma=hc.g2_scalar_mul(g2_base, gamma),
+            delta=hc.g2_scalar_mul(g2_base, delta),
+            xi=None)
 
-    # small host parts: sum_gamma needs the first input+1 combined values
-    head_ints = FR_CTX.from_limbs_np(
-        sum_delta_std[:dqap.input + 1].cpu().numpy())
-    sum_gamma = [
-        hc.g1_scalar_mul(g1_base, int(c) * delta % f * gamma_inv % f)
-        for c in head_ints
-    ]
-    sigmag1 = SigmaG1(
-        alpha=hc.g1_scalar_mul(g1_base, alpha),
-        beta=hc.g1_scalar_mul(g1_base, beta),
-        delta=hc.g1_scalar_mul(g1_base, delta),
-        xi=None, sum_gamma=sum_gamma, sum_delta=None, xi_t=None)
-    sigmag2 = SigmaG2(
-        beta=hc.g2_scalar_mul(g2_base, beta),
-        gamma=hc.g2_scalar_mul(g2_base, gamma),
-        delta=hc.g2_scalar_mul(g2_base, delta),
-        xi=None)
+    def encrypt(ops, base, scalars):
+        return _fixed_base_encrypt(ops, base, scalars, mesh, timer)
 
     return DeviceCRS(
-        xi_g1=_fixed_base_encrypt(FQ_OPS, g1_base, xi_std, mesh),
-        xi_t_g1=_fixed_base_encrypt(FQ_OPS, g1_base, xi_t_std, mesh),
-        sum_delta_g1=_fixed_base_encrypt(
-            FQ_OPS, g1_base, sum_delta_std[dqap.input + 1:], mesh),
-        xi_g2=_fixed_base_encrypt(FQ2_OPS, g2_base, xi_std, mesh),
+        xi_g1=encrypt(FQ_OPS, g1_base, xi_std),
+        xi_t_g1=encrypt(FQ_OPS, g1_base, xi_t_std),
+        sum_delta_g1=encrypt(FQ_OPS, g1_base,
+                             sum_delta_std[dqap.input + 1:]),
+        xi_g2=encrypt(FQ2_OPS, g2_base, xi_std),
         sigmag1=sigmag1, sigmag2=sigmag2)
 
 

@@ -24,7 +24,11 @@ Chains, one launch each where the JAX package runs a `lax.scan` or
 - `add_scan`: the running sums of a (B, c, ...) grid along its c axis
   (`_scan_chunks` with the add combine), with every prefix if asked;
 - `double_n`: k doublings (`_double_n`);
-- `horner`: the window sums' Horner tail (`horner_body`).
+- `horner`: the window sums' Horner tail (`horner_body`);
+- `comb`: setup's fixed-base comb encryption, 32 mixed adds a scalar
+  from an affine (32, 256) table (`zksnark_tpu/groth16/prover.py`
+  `_comb_encrypt_impl`, a `lax.scan` of the madd kernel;
+  `csrc/point_comb.cu`).
 Their plain versions are the loops of the elementwise plain versions.
 
 Every entry runs its kernel on CUDA tensors (raising if it does not build
@@ -43,8 +47,11 @@ from ..curve.jacobian import JPoint
 
 # launches of each kernel entry; reset and read by chip_smoke.py
 LAUNCHES = {f"{op}_{g}": 0 for op in ("madd", "add", "double", "bucket_scan",
-                                      "add_scan", "double_n", "horner")
+                                      "add_scan", "double_n", "horner",
+                                      "comb")
             for g in ("g1", "g2")}
+
+COMB_WINDOWS, COMB_DIGITS = 32, 256     # 8-bit windows of a 256-bit scalar
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +273,26 @@ def horner_plain(ops, sums: JPoint, c: int) -> JPoint:
     return acc
 
 
+def comb_digits(scalars_std: torch.Tensor) -> torch.Tensor:
+    """(m, 8) standard-form limbs -> (m, 32) int64 little-endian bytes
+    (with 8-bit windows the comb windows ARE the bytes)."""
+    w = scalars_std.to(torch.int64) & 0xFFFFFFFF
+    sh = torch.arange(0, 32, 8, device=w.device)
+    return ((w.unsqueeze(-1) >> sh) & 0xFF).reshape(w.shape[0],
+                                                    COMB_WINDOWS)
+
+
+def comb_plain(ops, table: JPoint, scalars_std: torch.Tensor) -> JPoint:
+    """E(s_i) = s_i * base: from infinity, one gather of the window's
+    table entries and one mixed add per byte, window 0 first."""
+    digits = comb_digits(scalars_std)
+    acc = jac.infinity(ops, (digits.shape[0],), scalars_std.device)
+    for w in range(COMB_WINDOWS):
+        d = digits[:, w]
+        acc = madd_plain(ops, acc, JPoint(*(a[w][d] for a in table)))
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
@@ -389,6 +416,24 @@ def _horner_cuda(ops, sums: JPoint, c: int) -> JPoint:
     return out
 
 
+def _comb_cuda(ops, table: JPoint, scalars_std: torch.Tensor) -> JPoint:
+    elem = _elem(ops)
+    tab = [_flat(a, elem) for a in table]
+    sc = scalars_std.contiguous()
+    if sc.data_ptr() % 16:
+        sc = sc.clone()
+    m = sc.shape[0]
+    out = _new((m,), elem, sc.device)
+    if m:
+        fn = _build.lib("point_comb.cu").zk_point_comb
+        g2 = int(ops.elem_ndim == 2)
+        code = fn(g2, *_ptrs(tab), sc.data_ptr(), *_ptrs(out),
+                  m, torch.cuda.current_stream(sc.device).cuda_stream)
+        _build.check(code, "point comb")
+        LAUNCHES[f"comb_{'g2' if g2 else 'g1'}"] += 1
+    return out
+
+
 def _device(p: JPoint, op: str) -> str:
     dev = p.z.device.type
     if dev not in ("cuda", "cpu"):
@@ -461,3 +506,27 @@ def horner(ops, sums: JPoint, c: int) -> JPoint:
     if _device(sums, "horner") == "cuda":
         return _horner_cuda(ops, sums, c)
     return horner_plain(ops, sums, c)
+
+
+def comb(ops, table: JPoint, scalars_std: torch.Tensor) -> JPoint:
+    """E(s_i) = s_i * base for every (m, 8) standard-form scalar, from
+    the comb table T[w, d] = d * 2^(8 w) * base ((32, 256) points, each
+    affine or infinity): 32 mixed adds a scalar, window 0 first, in the
+    order of `comb_plain`; one launch on CUDA tensors."""
+    elem = _elem(ops)
+    for a in table:
+        if (a.dtype != torch.int32 or tuple(a.shape) !=
+                (COMB_WINDOWS, COMB_DIGITS) + elem):
+            raise ValueError(f"comb: the table needs ({COMB_WINDOWS}, "
+                             f"{COMB_DIGITS}, *{elem}) int32 coordinates, "
+                             f"got {tuple(a.shape)} {a.dtype}")
+    if (scalars_std.dtype != torch.int32 or scalars_std.dim() != 2
+            or scalars_std.shape[1] != 8):
+        raise ValueError(f"comb: scalars must be (m, 8) int32 limbs, got "
+                         f"{tuple(scalars_std.shape)} {scalars_std.dtype}")
+    if any(a.device != scalars_std.device for a in table):
+        raise ValueError(f"comb: table on {table.z.device}, scalars on "
+                         f"{scalars_std.device}")
+    if _device(table, "comb") == "cuda":
+        return _comb_cuda(ops, table, scalars_std)
+    return comb_plain(ops, table, scalars_std)

@@ -8,6 +8,14 @@ tensor; on a CPU tensor it runs the plain version (`field.limb.mont_mul`).
 `mont_sqr`, `mont_pow_fixed` and `mont_inv` are the ladders of
 `field.limb` on top of it: on a CUDA tensor each step is one launch
 (`mont_inv`: 254 squarings and 127 products over Fr, 110 over Fq).
+
+`mont_scan` and `normalize` are `batch_normalize`'s products
+(`csrc/mont_scan.cu`): the inclusive prefix products along axis 1 of a
+(B, c) grid of Fq or Fq2 elements, one launch for the grid (a block of
+threads per row) where the JAX package's `_prefix_prod`
+(`zksnark_tpu/curve/jacobian.py:203`) runs one launch per step; and the
+pass that turns the prefix and suffix products into affine points, one
+launch where its `_bn_apply` (:296) runs six products.
 """
 
 from __future__ import annotations
@@ -20,8 +28,9 @@ from ..field.limb import FR_CTX, MontCtx
 
 L = limb.L
 
-# launches of the kernel, by field; reset and read by chip_smoke.py
-LAUNCHES = {"montmul_fr": 0, "montmul_fq": 0}
+# launches of the kernels, by field; reset and read by chip_smoke.py
+LAUNCHES = {"montmul_fr": 0, "montmul_fq": 0, "mont_scan_fq": 0,
+            "mont_scan_fq2": 0, "normalize_fq": 0, "normalize_fq2": 0}
 
 
 def kernel_name(ctx: MontCtx) -> str:
@@ -89,3 +98,170 @@ def mont_inv(ctx: MontCtx, a: torch.Tensor) -> torch.Tensor:
     """a^(p-2) for every element (Montgomery in and out); zero maps to
     zero."""
     return limb.mont_inv(ctx, a, mont_mul)
+
+
+# ---------------------------------------------------------------------------
+# the prefix-product chain
+# ---------------------------------------------------------------------------
+
+def _elem(ops, what: str) -> tuple:
+    if ops.ctx.p != limb.FQ_CTX.p:
+        raise ValueError(f"{what}: the kernel takes Fq and Fq2 only")
+    return (L,) if ops.elem_ndim == 1 else (2, L)
+
+
+def _check_scan(ops, grid: torch.Tensor, carry) -> None:
+    elem = _elem(ops, "mont_scan")
+    if (grid.dtype != limb.DT or grid.dim() != 2 + len(elem)
+            or tuple(grid.shape[2:]) != elem):
+        raise ValueError(f"mont_scan needs a (B, c, *{elem}) int32 grid, "
+                         f"got {tuple(grid.shape)} {grid.dtype}")
+    if carry is not None:
+        if carry.device != grid.device:
+            raise ValueError(f"mont_scan: carry on {carry.device}, grid on "
+                             f"{grid.device}")
+        if carry.dtype != limb.DT or carry.shape != grid.shape[:1] + elem:
+            raise ValueError(f"mont_scan: carry {tuple(carry.shape)} does "
+                             f"not match the grid's rows")
+    if grid.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"mont_scan: unsupported device {grid.device}")
+
+
+# threads of a scan block (`kThreads` of csrc/mont_scan.cu): the kernel
+# splits a row into this many runs
+SCAN_THREADS = 128
+# the longest row `curve.jacobian._prefix_prod` gives one scan launch: 16
+# products a thread
+SCAN_ROW = 16 * SCAN_THREADS
+
+
+def scan_chunk(n: int) -> int:
+    """Elements of a row at a prefix-product level of n elements."""
+    return min(SCAN_ROW, n)
+
+
+def mont_scan_plain(ops, grid: torch.Tensor, carry=None,
+                    collect: bool = True):
+    """The plain version, split as the kernel splits a row: runs of
+    ceil(c / 128) elements, each run's product, the runs' exclusive
+    products in order from the carry, then every prefix from its run's
+    start; one product per step with every run of every row side by side.
+    Products are canonical residues, so the split changes no byte of the
+    result: it is the loop along the row, in 2 ceil(c / 128) + 128
+    steps instead of c."""
+    plain = type(ops)(ops.ctx)          # the plain Montgomery product
+    b, c = grid.shape[:2]
+    elem, dev = grid.shape[2:], grid.device
+    k = -(-c // SCAN_THREADS)           # elements a run
+    t = -(-c // k) if c else 0          # runs
+    if t * k != c:
+        grid = torch.cat([grid, plain.one((b, t * k - c), dev)], 1)
+    runs = grid.reshape((b, t, k) + elem)
+    local = plain.one((b, t), dev)
+    for j in range(k):
+        local = plain.mul(local, runs[:, :, j])
+    acc = plain.one((b,), dev) if carry is None else carry
+    starts = torch.empty_like(local)
+    for i in range(t):
+        starts[:, i] = acc
+        acc = plain.mul(acc, local[:, i])
+    if not collect:
+        return acc, None
+    within = torch.empty_like(runs)
+    run = starts
+    for j in range(k):
+        run = plain.mul(run, runs[:, :, j])
+        within[:, :, j] = run
+    return acc, within.reshape((b, t * k) + elem)[:, :c]
+
+
+def _mont_scan_cuda(ops, grid, carry, collect):
+    b, c = grid.shape[:2]
+    flat = _flat(grid)                 # contiguous, 16-byte aligned limbs
+    cflat = None if carry is None else _flat(carry)
+    totals = torch.empty(grid.shape[:1] + grid.shape[2:], dtype=limb.DT,
+                         device=grid.device)
+    within = torch.empty_like(flat).reshape(grid.shape) if collect else None
+    if b * c:
+        fq2 = ops.elem_ndim == 2
+        code = _build.lib("mont_scan.cu").zk_mont_scan(
+            int(fq2), flat.data_ptr(),
+            None if cflat is None else cflat.data_ptr(),
+            None if within is None else within.data_ptr(),
+            totals.data_ptr(), b, c,
+            torch.cuda.current_stream(grid.device).cuda_stream)
+        _build.check(code, "mont_scan")
+        LAUNCHES["mont_scan_fq2" if fq2 else "mont_scan_fq"] += 1
+    return totals, within
+
+
+def mont_scan(ops, grid: torch.Tensor, carry=None, collect: bool = True):
+    """Inclusive prefix products along axis 1 of a (B, c, *elem) grid of
+    Fq (`FqOps`) or Fq2 (`Fq2Ops`) Montgomery residues: row b's running
+    product starts from carry[b] (None: the one).  Returns (totals (B,
+    *elem), every prefix (B, c, *elem) or None when collect is False).
+    One launch on CUDA tensors; the plain version on CPU tensors."""
+    _check_scan(ops, grid, carry)
+    if grid.device.type == "cuda":
+        return _mont_scan_cuda(ops, grid, carry, collect)
+    return mont_scan_plain(ops, grid, carry, collect)
+
+
+# ---------------------------------------------------------------------------
+# batch_normalize's pass over the points
+# ---------------------------------------------------------------------------
+
+def normalize_plain(ops, x, y, z, pre, suf, tinv):
+    """The plain version: zinv_i = pre[i - 1] suf[i + 1] tinv (the one past
+    either end), then x zinv^2, y zinv^3 and Z = one, or (one, one, 0)
+    where z is zero (the products and selects `batch_normalize` ran
+    before the kernel)."""
+    plain = type(ops)(ops.ctx)          # the plain Montgomery product
+    n = z.shape[0]
+    inf = plain.is_zero(z)
+    one = plain.one((n,), z.device)
+    pre_ex = torch.cat([one[:1], pre[:-1]])          # prod_{j<i} z_j
+    suf_ex = torch.cat([suf[1:], one[:1]])           # prod_{j>i} z_j
+    zinv = plain.mul(plain.mul(pre_ex, suf_ex), tinv.unsqueeze(0))
+    zi2 = plain.mul(zinv, zinv)
+    zi3 = plain.mul(zi2, zinv)
+    return (plain.select(inf, one, plain.mul(x, zi2)),
+            plain.select(inf, one, plain.mul(y, zi3)),
+            plain.select(inf, torch.zeros_like(one), one))
+
+
+def normalize(ops, x, y, z, pre, suf, tinv):
+    """Affine-or-infinity coordinates of n Jacobian points (x, y, z), each
+    (n, *elem) over Fq (`FqOps`) or Fq2 (`Fq2Ops`), from pre[i] = z_0 ..
+    z_i and suf[i] = z_i .. z_{n-1} (an infinite point's z taken as one)
+    and tinv (*elem), the inverse of the grand product (see
+    `normalize_plain`).  Returns (x', y', z').  One launch on CUDA
+    tensors; the plain version on CPU tensors."""
+    elem = _elem(ops, "normalize")
+    arrays = (x, y, z, pre, suf)
+    n = z.shape[0]
+    for a in arrays + (tinv,):
+        if a.dtype != limb.DT or a.device != z.device:
+            raise ValueError(f"normalize: int32 limbs on one device, got "
+                             f"{a.dtype} on {a.device} and {z.device}")
+    if (any(tuple(a.shape) != (n,) + elem for a in arrays)
+            or tuple(tinv.shape) != elem):
+        raise ValueError(f"normalize needs (n, *{elem}) points and "
+                         f"products and a {elem} inverse, got "
+                         f"{[tuple(a.shape) for a in arrays + (tinv,)]}")
+    if z.device.type == "cpu":
+        return normalize_plain(ops, x, y, z, pre, suf, tinv)
+    if z.device.type != "cuda":
+        raise ValueError(f"normalize: unsupported device {z.device}")
+    ins = [_flat(a) for a in arrays + (tinv,)]
+    outs = [torch.empty((n,) + elem, dtype=limb.DT, device=z.device)
+            for _ in range(3)]
+    if n:
+        fq2 = ops.elem_ndim == 2
+        code = _build.lib("mont_scan.cu").zk_normalize(
+            int(fq2), *(a.data_ptr() for a in ins),
+            *(o.data_ptr() for o in outs), n,
+            torch.cuda.current_stream(z.device).cuda_stream)
+        _build.check(code, "normalize")
+        LAUNCHES["normalize_fq2" if fq2 else "normalize_fq"] += 1
+    return tuple(outs)
