@@ -10,7 +10,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    `zksnark_tpu_torch/csrc/` (one process per source, in parallel).
 2. kernels: each kernel entry — K1 montmul (Fr, Fq); K2 madd, K3 add,
    K4 double (G1, G2); the MSM's chains K2 bucket_scan, K3 add_scan, K4
-   double_n and horner (G1, G2); the NTT passes; setup's K1 mont_scan
+   double_n and horner (G1, G2); the MSM's tail K3 add_gather and K4
+   abel (G1, G2); the NTT passes; setup's K1 mont_scan
    and normalize (Fq, Fq2: batch_normalize's prefix products and its
    pass over the points) and its chain K2 comb (G1, G2: the fixed-base
    comb encryption) — runs on 2^16 random inputs plus the edge cases
@@ -20,7 +21,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    infinity, k = 0 and 1, window sums at infinity; for the bucket scan a
    bucket whose points cancel, a bucket of equal points, infinity table
    entries, empty buckets, runs across chunks and an n that is not a
-   multiple of 64, mixed and general adds; for the NTT every log_n from 1
+   multiple of 64, mixed and general adds; for add_gather an index < 0
+   on either side and on both, P = Q met only through the gather, P = -Q,
+   infinity rows, one table on both sides, the bucket ends of a scan
+   whose window opens with empty buckets; for abel an infinite E_top, R
+   at infinity, R = +-2^k E_top, k = 0, 1, 16; for the NTT every log_n from 1
    to 20, forward and inverse, in the default passes and in an uneven
    split; for the scan rows of one element, zero elements and carries,
    a carry of one; for normalize a point alone and real points with
@@ -33,9 +38,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    random CUDA inputs at the shapes the main path gives it: the two
    outputs must again be equal bit for bit, and both are timed with CUDA
    events, the chains, the bucket scan, the NTT, the scan (every level
-   of a 2^20 prefix product), normalize (2^20 points) and the comb (2^20
-   scalars, G1 and G2) also beside the loop of launches that each
-   replaces.  The G1 bucket scan is also checked at the keccak path's C
+   of a 2^20 prefix product), normalize (2^20 points), the comb (2^20
+   scalars, G1 and G2) and the MSM's tail (the bucket ends of a real
+   2^20 bucket scan, the 2^18 and 4096 fix-ups, the 64-point rounds,
+   Abel at W = 16; with the profiler's device time at the small shapes)
+   also beside the loop of launches that each replaces.  The G1 bucket scan is also checked at the keccak path's C
    MSM digit columns (W = 16, c = 16, 2^18
    positions, window 0 in {0, 1}, windows 1-15 all 0).
 3. reference: a small circuit (n = 2^3) proves on the card and with the
@@ -46,14 +53,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    on its public input x and be rejected on x + 1.  The kernel launch
    counts are reset just before setup and read after it and after each
    prove; every kernel entry of the path must have launched (all but the
-   elementwise double, madd and Fq product, whose work now runs in
-   double_n, horner, the bucket scan, the comb, mont_scan and normalize,
-   and the batched NTT, which only the mesh path runs); setup must
+   elementwise double, madd, add, double_n and Fq product, whose work
+   now runs in horner, the bucket scan, add_gather, abel, the comb,
+   mont_scan and normalize, and the batched NTT, which only the mesh
+   path runs); setup must
    launch the comb and normalize once per point set (three G1, one G2),
    the scan `scan_launches(n)` times for each of a set's two prefix
-   products and the elementwise madd and Fq product not at all; each prove must launch the bucket scan
-   once per MSM (four G1, one G2), the elementwise madd not at all and
-   the NTT kernel once per pass of its seven transforms.  A second setup
+   products and the elementwise madd and Fq product not at all; each
+   prove (`prove_expect`) must launch per MSM (four G1, one G2) the
+   bucket scan once, add_gather `gather_launches(m)` times (5 at m =
+   2^20: 20 G1, 5 G2) and abel once, the elementwise madd, add and
+   double_n not at all, and the NTT kernel once per pass of its seven
+   transforms.  A second setup
    is then timed phase by phase (scalars, host sigma points, comb,
    normalize) and must make the same CRS.
 5. keccak: the example `zksnark_tpu_torch.examples.keccak_proof` at full
@@ -85,7 +96,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    version on the card; at n = 2^10 equal to the host `dense.mul`.
 10. msm_bits: `msm(..., scalar_bits=64)` over the path's 2^20 G1 CRS
    points equal to the full MSM in affine form, with one bucket-scan
-   launch at W = 4 windows, and bit-exact against its plain version on
+   launch at W = 4 windows (and the tail's add_gathers and one abel),
+   and bit-exact against its plain version on
    the card at the same shape (c = 16, W = 4).
 11. bench: `python -m zksnark_tpu_torch.bench --log-n 20 --repeats 2` in
    its own process; its headline must parse, with a value > 0 and the
@@ -100,10 +112,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    of `[path]` at 2^20, two more made here at 2^18), verify on [x] and
    be rejected on [x + 1]; each prove must launch the batched NTT once
    per pass of its seven four-step transforms (both halves), the bucket
-   scan once per MSM and no single-transform NTT or elementwise madd,
+   scan once per MSM, add_gather `gather_launches(n / world)` times per
+   MSM (5, 7, 6 at world 1, 2, 4) and abel once per MSM, and no
+   single-transform NTT or elementwise madd, add or double_n,
    and setup and the proves together every kernel entry of the mesh
-   path (all but the elementwise double, madd and Fq product and the
-   single-transform NTT).
+   path (all but the elementwise double, madd, add, double_n and Fq
+   product and the single-transform NTT).
    The batched NTT pass is also checked in phase 2: small batches of
    every log_n from 1 to 12 and the path's four-step batches, forward
    and inverse, bit-exact against its plain version and against the
@@ -166,6 +180,8 @@ TPU_KERNELS = {
     "mont_scan": "zksnark_tpu/ops/montmul.py:42",
     "normalize": "zksnark_tpu/ops/montmul.py:42",
     "comb": "zksnark_tpu/ops/curve_pallas.py:291",
+    "add_gather": "zksnark_tpu/ops/curve_pallas.py:281",
+    "abel": "zksnark_tpu/ops/curve_pallas.py:301",
 }
 SOURCES = {
     "montmul": "zksnark_tpu_torch/csrc/montmul.cu",
@@ -180,16 +196,19 @@ SOURCES = {
     "mont_scan": "zksnark_tpu_torch/csrc/mont_scan.cu",
     "normalize": "zksnark_tpu_torch/csrc/mont_scan.cu",
     "comb": "zksnark_tpu_torch/csrc/point_comb.cu",
+    "add_gather": "zksnark_tpu_torch/csrc/point_tail.cu",
+    "abel": "zksnark_tpu_torch/csrc/point_tail.cu",
 }
-# the elementwise double, madd and Fq product have no launch on the main
-# path: the MSM's doubling chains run in double_n and horner, its mixed
-# adds in the bucket scan, setup's in the comb, batch_normalize's
-# products in mont_scan and normalize; the batched NTT runs on the mesh
-# path only, where every transform is batched
-OFF_PATH = ("double_g1", "double_g2", "madd_g1", "madd_g2", "montmul_fq",
-            "ntt_fr_batched")
-MESH_OFF_PATH = ("double_g1", "double_g2", "madd_g1", "madd_g2",
-                 "montmul_fq", "ntt_fr")
+# the elementwise double, madd, add, double_n and Fq product have no
+# launch on the main path: the MSM's doubling chains run in horner and
+# abel, its mixed adds in the bucket scan, its tail's adds in add_gather
+# and abel, setup's mixed adds in the comb, batch_normalize's products
+# in mont_scan and normalize; the batched NTT runs on the mesh path only,
+# where every transform is batched
+ELEMENTWISE = ("double_g1", "double_g2", "madd_g1", "madd_g2", "add_g1",
+               "add_g2", "double_n_g1", "double_n_g2", "montmul_fq")
+OFF_PATH = ELEMENTWISE + ("ntt_fr_batched",)
+MESH_OFF_PATH = ELEMENTWISE + ("ntt_fr",)
 MESH_ONLY = ("ntt_fr_batched",)
 # result name -> TPU_KERNELS / SOURCES key, where not the name's stem
 OP_OF = {"ntt_fr_batched": "ntt"}
@@ -301,6 +320,7 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
     from zksnark_tpu_torch.field.limb import FQ_CTX, FR_CTX
     from zksnark_tpu_torch.ops import curve_kernels as ck
     from zksnark_tpu_torch.ops import montmul as mm
+    from zksnark_tpu_torch.ops import msm
 
     rng = np.random.default_rng(seed)
     hrng = random.Random(seed)
@@ -543,6 +563,90 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
         log(f"[kernels] bucket_scan_{g}: tables of {nr} points, 2^16 and "
             f"16 buckets, mixed and general adds, max |kernel - plain| = "
             f"{err}, edge table vs host curve {'ok' if sem else 'FAIL'}")
+
+        # -- the MSM's tail ------------------------------------------------
+        # add_gather: n_rand outputs over the random tables (an index < 0
+        # on either side 1 time in 16 each) and the edge rows of
+        # tail_edge_case over tables of real points, in one launch; P and
+        # Q one table, as in a Hillis-Steele round; and the bucket ends
+        # of a random bucket scan (W = 3, 16 buckets; window 0's digits
+        # >= 5, so its first five buckets are empty ahead of its first
+        # run), as the MSM gathers them
+        def idx(rows, n):
+            i = rng.integers(0, rows, size=n)
+            i[rng.random(n) < 1 / 16] = -1
+            return torch.from_numpy(i.astype(np.int32)).to(dev)
+
+        ep, epi, eq, eqi, host_want = tail_edge_case(
+            pts, scaled, cat, hadd, hneg, A, B, C, D)
+        gp, gq = cat(P_rand, ep), cat(Q_rand, eq)
+        gpi = torch.cat([idx(n_rand + 6, n_rand),
+                         torch.where(epi < 0, epi, epi + n_rand).to(dev)])
+        gqi = torch.cat([idx(n_rand + 5, n_rand),
+                         torch.where(eqi < 0, eqi, eqi + n_rand).to(dev)])
+        cases = [(gp, gpi, gq, gqi)]
+        i = torch.arange(n_rand, dtype=torch.int32, device=dev)
+        cases.append((P_rand, i - 1, P_rand, i))
+        cases.append((P_rand, torch.flip(i, (0,)), P_rand, i))
+        d = torch.from_numpy(np.stack([
+            rng.integers(5, 16, nr), rng.integers(0, 16, nr),
+            rng.integers(0, 16, nr)])).to(dev)
+        d_sorted, order = torch.sort(d, dim=1)
+        ends_w, chunk, valid, totals = ck.bucket_scan(
+            ops, tab_aff, order, d_sorted, 16, 64, True)
+        b = totals.z.shape[0]
+        carry = msm._prefix_scan(ops, cat(jac.infinity(ops, (1, 3), dev),
+                                          jac.JPoint(*(a[:b - 1]
+                                                       for a in totals))))
+        fpi, fqi = msm._fill_indices(chunk, valid)
+        cases.append((carry, fpi, ends_w, fqi))
+        err = 0
+        for args in cases:
+            got = ck.add_gather(ops, *args)
+            want = ck.add_gather_plain(ops, *args)
+            torch.cuda.synchronize()
+            err = max(err, err_of(got, want))
+        got = ck.add_gather(ops, *cases[0])
+        rows = [n_rand + k for k in host_want]
+        sem = affine(jac.JPoint(*(a[rows] for a in got))) == \
+            list(host_want.values())
+        # both indices < 0: the canonical infinity, limb for limb
+        inf = jac.infinity(ops, (1,), dev)
+        sem &= all(torch.equal(a[n_rand + 4:n_rand + 5], b)
+                   for a, b in zip(got, inf))
+        leading = bool((fqi[:5, 0] < 0).all() and (fpi[:5, 0] < 0).all())
+        results[f"add_gather_{g}"] = {
+            "max_abs_err": err, "bit_exact": err == 0,
+            "host_edge_ok": sem and leading,
+            "n_checked": sum(a[1].numel() for a in cases)}
+        log(f"[kernels] add_gather_{g}: {n_rand} + {len(rows)} edge "
+            f"outputs over two tables, {n_rand} over one table twice, the "
+            f"bucket ends of a 3-window scan of {nr} points (window 0's "
+            f"first 5 buckets empty: {leading}), max |kernel - plain| = "
+            f"{err}, edge rows vs host curve {'ok' if sem else 'FAIL'}")
+
+        # abel: random (C, T, R) and the edge rows of abel_edge_case, k =
+        # 0, 1 and 16
+        cc, tt, r_of, abel_want = abel_edge_case(
+            pts, scaled, cat, hadd, hneg, smul, A, B, C, D)
+        rand3 = [jac.JPoint(rnd((n_rand,)), rnd((n_rand,)), rnd((n_rand,)))
+                 for _ in range(3)]
+        err, sem = 0, True
+        for k in (0, 1, 16):
+            three = [cat(rand3[0], cc), cat(rand3[1], tt),
+                     cat(rand3[2], r_of(k))]
+            got = ck.abel(ops, *three, k)
+            want = ck.abel_plain(ops, *three, k)
+            torch.cuda.synchronize()
+            err = max(err, err_of(got, want))
+            sem &= affine(jac.JPoint(*(a[n_rand:] for a in got))) == \
+                abel_want(k)
+        results[f"abel_{g}"] = {"max_abs_err": err, "bit_exact": err == 0,
+                                "host_edge_ok": sem,
+                                "n_checked": three[0].z.shape[0]}
+        log(f"[kernels] abel_{g}: {three[0].z.shape[0]} windows, k = 0, 1, "
+            f"16, max |kernel - plain| = {err}, edge rows vs host curve "
+            f"{'ok' if sem else 'FAIL'}")
 
     setup_chain_checks(dev, rng, n_rand, results)
 
@@ -1027,6 +1131,47 @@ def bucket_err(got, want) -> int:
     return max(errs)
 
 
+def tail_edge_case(pts, scaled, cat, hadd, hneg, A, B, C, D):
+    """add_gather's edge rows: tables P (A, B, C, infinity, A with another
+    Z, D with another Z) and Q (A, -B, D, infinity, C with another Z) of
+    real points and nine index pairs: A + A met only through the gather
+    (the doubling branch re-reads P's row), B + (-B), an index < 0 on
+    either side and on both (row 4: the canonical infinity), an infinity
+    row, C + C and D + D with other Z, A + D.  Returns (P, pi, Q, qi,
+    {row: host sum}), the indices on the CPU."""
+    p = cat(pts([A, B, C, None]), scaled(pts([A]), 7), scaled(pts([D]), 3))
+    q = cat(pts([A, hneg(B), D, None]), scaled(pts([C]), 5))
+    pi = torch.tensor([4, 1, -1, 2, -1, 3, 2, 5, 0], dtype=torch.int32)
+    qi = torch.tensor([0, 1, 2, -1, -1, 4, 4, 2, 2], dtype=torch.int32)
+    want = [hadd(A, A), None, D, C, None, C, hadd(C, C), hadd(D, D),
+            hadd(A, D)]
+    return p, pi, q, qi, dict(enumerate(want))
+
+
+def abel_edge_case(pts, scaled, cat, hadd, hneg, smul, A, B, C, D):
+    """abel's edge rows (C, T, R): A + A with two Z (the first add
+    doubles), B + (-B) (E_top at infinity), infinity + D with R at
+    infinity, and A + B with R = 2^k (A + B) (the last add cancels) and
+    with R = -2^k (A + B) (the last add doubles).  Returns (C, T, R of k,
+    host results of k)."""
+    c = cat(scaled(pts([A]), 2), pts([B, None, A]), scaled(pts([A]), 7))
+    t = cat(scaled(pts([A]), 3), pts([hneg(B), D]), scaled(pts([B]), 5),
+            pts([B]))
+
+    def top(k):
+        return smul(hadd(A, B), 1 << k)
+
+    def r_of(k):
+        return cat(pts([B]), scaled(pts([C]), 4), pts([None]),
+                   scaled(pts([top(k)]), 6), pts([hneg(top(k))]))
+
+    def want(k):
+        return [hadd(smul(A, 2 << k), hneg(B)), hneg(C), smul(D, 1 << k),
+                None, hadd(top(k), top(k))]
+
+    return c, t, r_of, want
+
+
 def edge_bucket_case(ops, g, pts, hadd, hneg, A, B, C, D, rng):
     """229 real points (host list, None at infinity) and two windows of
     16-bucket digits: window 0 opens with (A, -A) in bucket 0 (madd's
@@ -1167,6 +1312,12 @@ def time_phase(dev, seed: int, results: dict) -> None:
                     per_shape.append({
                         "shape": [m], "ms": m_ms, "plain_ms": m_plain,
                         "err": m_err, **bound(byt * m // n, ops_n * m // n)})
+                    if m <= 4096:
+                        per_shape[-1]["device_ms"] = device_ms(
+                            lambda: kern(ops, *a2))
+                        log(f"[timing] {name} n={m}: device time "
+                            f"{per_shape[-1]['device_ms']:.4f} ms "
+                            f"(profiler)")
                     log(f"[timing] {name} n={m}: kernel {m_ms:.4f} ms, "
                         f"plain {m_plain:.3f} ms, bound "
                         f"{per_shape[-1]['bound_ms']:.5f} ms; max |kernel "
@@ -1178,6 +1329,9 @@ def time_phase(dev, seed: int, results: dict) -> None:
         chain_timing(ops, g, lambda n: jac.JPoint(
             rnd(n, FQ_CTX, elem), rnd(n, FQ_CTX, elem),
             rnd(n, FQ_CTX, elem)), results)
+        tail_timing(ops, g, lambda n: jac.JPoint(
+            rnd(n, FQ_CTX, elem), rnd(n, FQ_CTX, elem),
+            rnd(n, FQ_CTX, elem)), gen, results)
         bucket_timing(ops, g, lambda n: rnd(n, FQ_CTX, elem), gen, results)
         if g == "g1":
             bucket_c_msm(lambda n: rnd(n, FQ_CTX, elem), gen, results)
@@ -1191,21 +1345,22 @@ def time_phase(dev, seed: int, results: dict) -> None:
 # kernel); montmul_fq and madd at their former shapes on the path, a
 # step of batch_normalize's prefix products (2^20 / 64) and of setup's
 # comb encryption (2^20 scalars), now run by mont_scan, normalize and
-# comb (the bucket scan runs the MSM's mixed adds); add at the MSM bucket
-# ends (16 windows x 2^16 buckets); double at the former Abel step (one
-# point per window)
+# comb (the bucket scan runs the MSM's mixed adds); add at the former
+# MSM bucket ends (16 windows x 2^16 buckets; add_gather runs them); double
+# at the former Abel step (one point per window; abel runs it)
 PATH_SHAPES = {"montmul_fr": 1 << 20, "montmul_fq": 1 << 14,
                "madd": 1 << 20, "add": 1 << 20, "double": 16}
-# the elementwise add's shapes in one 2^20 MSM (c = 16): bucket ends,
-# the two chunk-carry fix-ups, the small Hillis-Steele rounds, E_top and
-# the Abel subtraction (2^20, 2^18, 4096, 64 twice, 16 twice)
+# the elementwise add's former shapes in one 2^20 MSM (c = 16), now run
+# by add_gather and abel: bucket ends, the two chunk-carry fix-ups, the
+# small Hillis-Steele rounds, E_top and the Abel subtraction (2^20, 2^18,
+# 4096, 64 twice, 16 twice)
 ADD_SHAPES = [1 << 20, 1 << 18, 4096, 64, 16]
 # the chains at the shapes of one 2^20 MSM (c = 16: W = 16 windows, 2^14
 # chunks of 64 sorted points per window): (chunks, steps, lanes per chunk,
 # collect) of the two chunk-carry scans and the three tree-sum levels
 SCAN_SHAPES = [(256, 64, 16, True), (4, 64, 16, True), (1024, 64, 16, False),
                (16, 64, 16, False), (1, 16, 16, False)]
-DOUBLE_N_SHAPE = (16, 16)        # Abel: 2^16 E_top, one point per window
+DOUBLE_N_SHAPE = (16, 16)        # the former Abel step: 2^16 E_top
 # Horner: W windows, c doublings each, MSMs side by side (a prove's four
 # G1 MSMs share one launch; its G2 MSM has its own)
 HORNER_SHAPE = {"g1": (16, 16, 4), "g2": (16, 16, 1)}
@@ -1601,6 +1756,278 @@ def chain_timing(ops, g, rnd_pts, results) -> None:
             f"{results[name]['loop_ms']:.3f} ms, bound {tb:.5f} ms")
 
 
+# the MSM's tail at one 2^20 MSM's shapes (c = 16, W = 16 windows, 2^14
+# chunks a window): the bucket ends of a real bucket scan, the chunk
+# carries' fix-ups ((chunks, steps, lanes) grids: 2^18 and 4096
+# positions), their Hillis-Steele rounds (4 rows x 16 windows: two
+# rounds of 64 points) and Abel (16 windows, 16 doublings)
+TAIL_SHAPE = {"windows": 16, "c": 16, "n": 1 << 20}
+FIXUP_SHAPES = [(256, 64, 16), (4, 64, 16)]
+HS_SHAPE = (4, 16)
+
+
+def loop_bucket_ends(ops, carry, ends_w, bucket_chunk, valid):
+    """What the bucket ends' add_gather replaced (`ops/msm.py` before
+    it): the carry rows packed and gathered by chunk, the elementwise add,
+    the ends packed and gathered by the last valid bucket, the select of
+    infinity before the first, and the transposed copy the tree sum
+    took.  Returns the (num_buckets, W) filled ends."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+    from zksnark_tpu_torch.ops import msm
+
+    W, nb = valid.shape
+    b = carry.z.shape[0]
+    dev = valid.device
+    elem = carry.x.shape[2:]
+    carry_rows = msm._pack(carry, (b * W,))
+    ends_c = msm._unpack(carry_rows[bucket_chunk * W + torch.arange(
+        W, device=dev).unsqueeze(1)], elem)
+    ends = ck.add(ops, ends_c, ends_w)
+    src = torch.where(valid, torch.arange(nb, device=dev),
+                      torch.full((), -1, device=dev, dtype=torch.int64))
+    last_valid = torch.cummax(src, dim=1).values
+    filled = msm._unpack(torch.gather(
+        msm._pack(ends, (W, nb)), 1,
+        last_valid.clamp(min=0).unsqueeze(-1).expand(
+            -1, -1, 3 * ends.x[0, 0].numel())), elem)
+    filled = jac.select(ops, last_valid < 0,
+                        jac.infinity(ops, (W, nb), dev), filled)
+    return jac.JPoint(*(a.transpose(0, 1).contiguous() for a in filled))
+
+
+def loop_fixup(ops, carry, within):
+    """What the fix-up's add_gather replaced: the (b, r) carries
+    broadcast over the (b, c, r) grid and added elementwise."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    full = ck.add(ops, jac.JPoint(*(a.unsqueeze(1) for a in carry)), within)
+    return jac.JPoint(*(a.reshape((-1,) + a.shape[2:]) for a in full))
+
+
+def loop_hs_scan(ops, pts):
+    """What the Hillis-Steele rounds' add_gather replaced: each round's
+    partner concatenated from infinity and the shifted rows, then the
+    elementwise add."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+    from zksnark_tpu_torch.ops import msm
+
+    size = pts.z.shape[0]
+    rest = msm._batch_shape(ops, pts)[1:]
+    for i in range((size - 1).bit_length()):
+        shift = 1 << i
+        inf = jac.infinity(ops, (shift,) + rest, pts.z.device)
+        partner = msm._cat(inf, msm._index(pts, slice(0, size - shift)))
+        pts = ck.add(ops, partner, pts)
+    return pts
+
+
+def loop_abel(ops, c, t, r, k):
+    """What abel replaced: add, double_n, jacobian.neg, add."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    return ck.add(ops, ck.double_n(ops, ck.add(ops, c, t), k),
+                  jac.neg(ops, r))
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of `fn`: the kernels' device time under
+    torch.profiler over `iters` calls (after a warm-up call), per call.
+    Beside the CUDA-event time around a wrapper it tells the card's share
+    from the host's at small shapes."""
+    fn()
+    _, busy, _, _ = profiled(lambda: [fn() for _ in range(iters)])
+    return busy / iters
+
+
+def tail_timing(ops, g, rnd_pts, gen, results) -> None:
+    """add_gather and abel at one 2^20 MSM's shapes: each entry, its
+    plain version and the composition it replaced (kept as the loop_*
+    functions), on the same inputs, timed and compared; device time from
+    the profiler beside the CUDA events at the small shapes.  The bucket
+    ends are those of a real bucket scan of 2^20 points (W = 16, c = 16;
+    window 0's digits all >= 2^15, so its first 2^15 buckets are empty
+    ahead of its first run).  add_gather's ms / loop_ms / plain_ms /
+    bound_ms sum one MSM's launches: the ends, the two fix-ups and the
+    two rounds."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+    from zksnark_tpu_torch.ops import msm
+
+    dev = gen.device
+    elem_b = 32 * (1 if g == "g1" else 2)
+    pt_b = 3 * elem_b
+    cnt_add, cnt_dbl = CountingOps(ops), CountingOps(ops)
+    one = rnd_pts(1)
+    ck.add_plain(cnt_add, one, rnd_pts(1))
+    ck.double_plain(cnt_dbl, one)
+    add_ops = cnt_add.muls * IMAD_PER_MUL + cnt_add.adds * OPS_PER_ADD
+    dbl_ops = cnt_dbl.muls * IMAD_PER_MUL + cnt_dbl.adds * OPS_PER_ADD
+    add_us = results[f"add_scan_{g}"]["thread_add_us"]
+    dbl_us = results[f"add_scan_{g}"]["thread_double_us"]
+
+    def err_of(a, b):
+        return max(limb_err(u, v) for u, v in zip(a, b))
+
+    def flat(p):
+        return jac.JPoint(*(a.reshape((-1,) + a.shape[a.dim()
+                                                     - ops.elem_ndim:])
+                            for a in p))
+
+    def formula_lanes(p, pi, q, qi):
+        """outputs that run the add's formula: both operands finite"""
+        fp, fq = flat(p), flat(q)
+        fin_p = (pi >= 0) & ~ops.is_zero(fp.z[pi.clamp(min=0).long()])
+        fin_q = (qi >= 0) & ~ops.is_zero(fq.z[qi.clamp(min=0).long()])
+        return int((fin_p & fin_q).sum().item())
+
+    def gather_bound(p, pi, q, qi):
+        n = pi.numel()
+        byt = (flat(p).z.shape[0] + flat(q).z.shape[0] + n) * pt_b + 8 * n
+        return bound(byt, formula_lanes(p, pi, q, qi) * add_ops)
+
+    def row(shape, kern, loop, plain, bnd, iters, small=False):
+        ms, got = time_cuda(kern, iters)
+        loop_ms, old = time_cuda(loop, max(2, iters // 5))
+        plain_ms, want = time_cuda(plain, 1)
+        err = max(err_of(got, want), err_of(old, want))
+        out = {"shape": shape, "ms": ms, "loop_ms": loop_ms,
+               "plain_ms": plain_ms, "err": err, **bnd}
+        if small:
+            out["device_ms"] = device_ms(kern)
+            out["loop_device_ms"] = device_ms(loop)
+        return out
+
+    # the bucket ends
+    W, c, n = (TAIL_SHAPE[k] for k in ("windows", "c", "n"))
+    nb = 1 << c
+    zm = torch.randint(0, 16, (n,), device=dev, generator=gen) == 0
+    p = rnd_pts(n)
+    tab = jac.JPoint(p.x, p.y, ops.select(
+        zm, ops.zero((n,), dev), ops.one((n,), dev)).contiguous())
+    digits = torch.randint(0, nb, (W, n), device=dev, generator=gen)
+    digits[0] |= nb // 2
+    d_sorted, order = torch.sort(digits, dim=1)
+    ends_w, chunk, valid, totals = ck.bucket_scan(ops, tab, order, d_sorted,
+                                                  nb, 64, True)
+    del p, tab, digits, d_sorted, order
+    b = totals.z.shape[0]
+    carry = msm._prefix_scan(ops, msm._cat(
+        jac.infinity(ops, (1, W), dev), msm._index(totals, slice(0, b - 1))))
+    pi, qi = msm._fill_indices(chunk, valid)
+    leading = bool((pi[:nb // 2, 0] < 0).all())
+    ends = row([nb, W], lambda: ck.add_gather(ops, carry, pi, ends_w, qi),
+               lambda: loop_bucket_ends(ops, carry, ends_w, chunk, valid),
+               lambda: ck.add_gather_plain(ops, carry, pi, ends_w, qi),
+               gather_bound(carry, pi, ends_w, qi), 10)
+
+    def ends_with_indices():
+        fpi, fqi = msm._fill_indices(chunk, valid)
+        return ck.add_gather(ops, carry, fpi, ends_w, fqi)
+
+    ends["with_indices_ms"] = time_cuda(ends_with_indices, 10)[0]
+    # the same adds on operands gathered beforehand (materialized, read
+    # in order), as the elementwise add read them
+    seq = [ck._take(ops, t, ix)
+           for t, ix in ((carry, pi), (ends_w, qi))]
+    ident = torch.arange(pi.numel(), dtype=torch.int32,
+                         device=dev).reshape(pi.shape)
+    ends["materialized_ms"] = time_cuda(lambda: ck.add_gather(
+        ops, seq[0], ident, seq[1], ident), 10)[0]
+    del seq
+    del ends_w, chunk, valid, totals, carry, pi, qi
+    per_shape = [ends]
+
+    # the chunk carries' fix-ups
+    for bc, steps, r in FIXUP_SHAPES:
+        carry = jac.JPoint(*(a.reshape((bc, r) + a.shape[1:])
+                             for a in rnd_pts(bc * r)))
+        within = jac.JPoint(*(a.reshape((bc, steps, r) + a.shape[1:])
+                              for a in rnd_pts(bc * steps * r)))
+        i = torch.arange(bc * steps * r, dtype=torch.int32,
+                         device=dev).reshape(bc * steps, r)
+        fpi = i // (steps * r) * r + i % r
+        per_shape.append(row(
+            [bc, steps, r], lambda: ck.add_gather(ops, carry, fpi, within, i),
+            lambda: loop_fixup(ops, carry, within),
+            lambda: ck.add_gather_plain(ops, carry, fpi, within, i),
+            gather_bound(carry, fpi, within, i), 20,
+            small=bc * steps * r <= 4096))
+
+    # the carries' Hillis-Steele rounds: two launches, row 0 at infinity
+    size, r = HS_SHAPE
+    hs = rnd_pts(size * r)
+    hs = jac.JPoint(*(a.reshape((size, r) + a.shape[1:]) for a in hs))
+    hs.z[0] = 0
+    rounds = (size - 1).bit_length()
+    hb = [gather_bound(hs, torch.arange(size * r, dtype=torch.int32,
+                                        device=dev) - (r << k),
+                       hs, torch.arange(size * r, dtype=torch.int32,
+                                        device=dev))
+          for k in range(rounds)]
+
+    def hs_plain():
+        with point_ops_plain():
+            return msm._hs_scan(ops, hs)
+
+    per_shape.append(row(
+        [size, r, rounds], lambda: msm._hs_scan(ops, hs),
+        lambda: loop_hs_scan(ops, hs), hs_plain,
+        {"bound_ms": sum(x["bound_ms"] for x in hb),
+         "bound_by": hb[0]["bound_by"]}, 20, small=True))
+    per_shape[-1]["latency_bound_ms"] = rounds * add_us / 1e3
+
+    # Abel
+    k = c
+    three = [rnd_pts(W) for _ in range(3)]
+    abel = row([W, k], lambda: ck.abel(ops, *three, k),
+               lambda: loop_abel(ops, *three, k),
+               lambda: ck.abel_plain(ops, *three, k),
+               bound(4 * W * pt_b, W * (2 * add_ops + k * dbl_ops)), 20,
+               small=True)
+    abel["latency_bound_ms"] = (2 * add_us + k * dbl_us) / 1e3
+
+    for name, rows, extra in (
+            (f"add_gather_{g}", per_shape, {"bucket_ends_leading_empty":
+                                            leading}),
+            (f"abel_{g}", [abel], {})):
+        for p in rows:
+            log(f"[timing] {name} {p['shape']}: kernel {p['ms']:.4f} ms"
+                + (f" (device {p['device_ms']:.4f})" if "device_ms" in p
+                   else "")
+                + f", loop of launches {p['loop_ms']:.3f} ms"
+                + (f" (device {p['loop_device_ms']:.4f})"
+                   if "loop_device_ms" in p else "")
+                + f", plain {p['plain_ms']:.3f} ms, bound "
+                f"{p['bound_ms']:.5f} ms ({p['bound_by']})"
+                + (f", one thread's chain {p['latency_bound_ms']:.4f} ms"
+                   if "latency_bound_ms" in p else "")
+                + f"; max |kernel - plain|, |loop - plain| = {p['err']}")
+        by = max(rows, key=lambda p: p["bound_ms"])["bound_by"]
+        results[name].update(
+            shape=[p["shape"] for p in rows],
+            ms=sum(p["ms"] for p in rows),
+            loop_ms=sum(p["loop_ms"] for p in rows),
+            plain_ms=sum(p["plain_ms"] for p in rows),
+            bound_ms=sum(p["bound_ms"] for p in rows), bound_by=by,
+            path_shape_err=max(p["err"] for p in rows),
+            checked_shapes=[p["shape"] for p in rows], per_shape=rows,
+            **extra)
+        log(f"[timing] {name}, summed over its shapes: kernel "
+            f"{results[name]['ms']:.4f} ms, loop of launches "
+            f"{results[name]['loop_ms']:.3f} ms, bound "
+            f"{results[name]['bound_ms']:.5f} ms")
+    if not leading:
+        raise SystemExit("tail_timing: window 0's leading buckets are not "
+                         "empty")
+    log(f"[timing] add_gather_{g} bucket ends with their index glue "
+        f"(_fill_indices): {ends['with_indices_ms']:.4f} ms; the same adds "
+        f"on operands gathered beforehand: {ends['materialized_ms']:.4f} ms")
+
+
 def ptxas_summary(log_text: str) -> list:
     """One line per kernel from nvcc's `-Xptxas -v` output: the kernel
     (its name and template arguments read off the mangled name), its
@@ -1707,6 +2134,34 @@ def setup_expect(crs) -> dict:
             "normalize_fq": 3, "normalize_fq2": 1, "montmul_fq": 0}
 
 
+def gather_launches(m: int) -> int:
+    """add_gather launches of one MSM over m points (`ops/msm.py`,
+    chunks of 64): one for the bucket ends, then per level of the chunk
+    carries' prefix scan over B = ceil(m / 64) rows one fix-up while more
+    than 128 rows remain, and at the last level its Hillis-Steele
+    rounds."""
+    count, rows = 1, -(-m // 64)
+    while rows > 128:
+        count += 1
+        rows = -(-rows // 64)
+    return count + (rows - 1).bit_length()
+
+
+def prove_expect(dqap, crs) -> dict:
+    """The launches of one single-device `device_prove`: per MSM (four
+    G1 over max(n, C's points) points, one G2 over n) one bucket scan,
+    `gather_launches` add_gathers and one abel; the NTT kernel once per
+    pass of each of the seven transforms; no elementwise madd, add or
+    double_n."""
+    m1 = max(dqap.n, crs.sum_delta_g1.z.shape[0])
+    m2 = crs.xi_g2.z.shape[0]
+    return {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
+            "madd_g2": 0, "add_g1": 0, "add_g2": 0, "double_n_g1": 0,
+            "double_n_g2": 0, "add_gather_g1": 4 * gather_launches(m1),
+            "add_gather_g2": gather_launches(m2), "abel_g1": 4,
+            "abel_g2": 1, "ntt_fr": 7 * len(dqap.domain.widths)}
+
+
 def check_setup(label: str, launches: dict, crs) -> None:
     want = setup_expect(crs)
     wrong = {k: launches[k] for k, v in want.items() if launches[k] != v}
@@ -1759,10 +2214,8 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
     log(f"[path] device_setup: {setup_s:.2f} s; launches {c_setup}; peak "
         f"device memory {setup_peak:.2f} GiB")
     check_setup("path", c_setup, crs)
-    # per prove: the bucket scan once per MSM, no elementwise madd, the
-    # NTT kernel once per pass of each of the seven transforms
-    expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
-              "madd_g2": 0, "ntt_fr": 7 * len(dqap.domain.widths)}
+    expect = prove_expect(dqap, crs)
+    log(f"[path] per prove expected: {expect}")
 
     be = BN254Backend()
     x = wit[1]
@@ -1784,7 +2237,8 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
         vs = time.time() - t1
         k34 = sum(v for k, v in launches.items()
                   if k.split("_g")[0] in ("add", "double", "add_scan",
-                                          "double_n", "horner"))
+                                          "double_n", "horner",
+                                          "add_gather", "abel"))
         log(f"[path] prove {i}: {ms:.1f} ms; launches {launches} (K3 + K4: "
             f"{k34}); peak device memory {peak:.2f} GiB; verify [x] {ok}, "
             f"[x+1] {bad} ({vs:.2f} s)")
@@ -1898,8 +2352,8 @@ def keccak_phase(dev, n_bytes: int, n_proves: int) -> dict:
         f"{c_setup}; peak device memory {setup_peak:.2f} GiB (resident "
         f"before it {base:.2f} GiB)")
     check_setup("keccak", c_setup, crs)
-    expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
-              "madd_g2": 0, "ntt_fr": 7 * len(dqap.domain.widths)}
+    expect = prove_expect(dqap, crs)
+    log(f"[keccak] per prove expected: {expect}")
     be = BN254Backend()
     pair = (crs.sigmag1, crs.sigmag2)
     tampered = list(public)
@@ -2304,8 +2758,9 @@ def poly_mul_phase(dev, seed: int) -> dict:
 def point_ops_plain():
     """Route every point op of `ops.curve_kernels` to its plain version on
     CUDA tensors too, for the duration: the module's `_device` switch,
-    which each of its wrappers asks (madd, add, double and the chains
-    bucket_scan, add_scan, double_n, horner, comb), answers "cpu".  It reroutes
+    which each of its wrappers asks (madd, add, double, the chains
+    bucket_scan, add_scan, double_n, horner, comb and the tail's
+    add_gather and abel), answers "cpu".  It reroutes
     nothing else: field products through `ops.montmul` and the NTT still
     launch their kernels, so a caller checks the counts.  An MSM over
     FQ_OPS (plain limb products) launches none."""
@@ -2377,8 +2832,11 @@ def msm_bits_phase(dev, xi_g1, seed: int) -> dict:
     log(f"[msm_bits] n={n}, c={c}, W = {n_win}: max |kernel - plain| = "
         f"{err} (plain on the card {plain_ms:.1f} ms, kernel launches in "
         f"it {stray or 0})")
+    tail = {"bucket_scan_g1": 1, "add_gather_g1": gather_launches(n),
+            "abel_g1": 1, "add_g1": 0, "double_n_g1": 0}
     if not same or err or stray or n_win != -(-64 // c) or (
-            dev.type == "cuda" and launches["bucket_scan_g1"] != 1):
+            dev.type == "cuda" and any(launches[k] != v
+                                       for k, v in tail.items())):
         raise SystemExit("msm_bits: the bounded MSM is wrong")
     return {"launches": launches, "ms": ms, "full_ms": full_ms,
             "plain_ms": plain_ms, "windows": n_win,
@@ -2545,8 +3003,14 @@ def mesh_run(backend: str, world: int, log_n: int, want: list) -> dict:
                          f"stderr:\n{outs[r][1][-3000:]}")
     split = psh.four_step_split(log_n, world)
     passes = sum(len(ntt.pass_widths(k)) for k in split)
+    # per MSM a rank runs n / world points (a power of two)
+    tail = gather_launches((1 << log_n) // world)
     expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
-              "madd_g2": 0, "ntt_fr": 0, "ntt_fr_batched": 7 * passes}
+              "madd_g2": 0, "add_g1": 0, "add_g2": 0, "double_n_g1": 0,
+              "double_n_g2": 0, "add_gather_g1": 4 * tail,
+              "add_gather_g2": tail, "abel_g1": 4, "abel_g2": 1,
+              "ntt_fr": 0, "ntt_fr_batched": 7 * passes}
+    log(f"[mesh] {label}: per prove and rank expected {expect}")
     ranks = []
     for r, (out, err) in enumerate(outs):
         res = json.loads(out.strip().splitlines()[-1])

@@ -35,6 +35,7 @@ SOURCES = {
     "ntt.cu": ("bn254_field.cuh",),
     "mont_scan.cu": ("bn254_field.cuh",),
     "point_comb.cu": ("bn254_field.cuh", "point_core.cuh"),
+    "point_tail.cu": ("bn254_field.cuh", "point_core.cuh"),
 }
 
 _P = ctypes.c_void_p
@@ -57,6 +58,10 @@ SIGNATURES = {
     "mont_scan.cu": {"zk_mont_scan": [_I] + [_P] * 4 + [_LL, _I, _P],
                      "zk_normalize": [_I] + [_P] * 9 + [_LL, _P]},
     "point_comb.cu": {"zk_point_comb": [_I] + [_P] * 7 + [_LL, _P]},
+    "point_tail.cu": {
+        "zk_point_add_gather": [_I] + [_P] * 11 + [_LL, _P],
+        "zk_point_abel": [_I] + [_P] * 12 + [_LL, _I, _P],
+    },
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

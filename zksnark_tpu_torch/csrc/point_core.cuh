@@ -193,6 +193,25 @@ __device__ __forceinline__ Pt<E> load_pt_again(const uint32_t* x,
                  elem_again<E>(z + W * i));
 }
 
+// Asynchronous 16-byte copies from global to shared memory (cp.async,
+// bypassing L1), for the kernels that stage the next point while the
+// current one computes (point_scan.cu, point_tail.cu).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 template <class E>
 __device__ __forceinline__ void store_pt(uint32_t* x, uint32_t* y, uint32_t* z,
                                          long long i, const Pt<E>& p) {

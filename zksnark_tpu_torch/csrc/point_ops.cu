@@ -7,8 +7,8 @@
 //   K4  double    2P; replaces _double_kernel (:301-307)
 //   K4  double_n  2^k P: k doublings in registers, one launch where the
 //                 JAX package runs `_double_n` (zksnark_tpu/ops/msm.py:211,
-//                 a fori_loop of K4) and the MSM's Abel step would
-//                 otherwise take k launches
+//                 a fori_loop of K4); the MSM's Abel step runs its
+//                 doublings in point_tail.cu's abel
 //
 // All of them were launched by _point_call (curve_pallas.py:337-356,
 // pallas_call at :346).  The formulas are the cores of point_core.cuh.

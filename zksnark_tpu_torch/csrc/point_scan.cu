@@ -89,21 +89,9 @@ constexpr int kHornerThreads = 32;
 constexpr int kBucketThreads = 64;
 constexpr int kBucketTile = 16;  // positions staged per tile
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using bn254::cp_async16;
+using bn254::cp_async_commit;
+using bn254::cp_async_wait;
 
 // (b, c, r) grid: the point index of lane l at position 0; position j
 // is j * r further.  Grids hold fewer than 2^31 points (zk_point_add_scan

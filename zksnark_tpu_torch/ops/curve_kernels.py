@@ -1,6 +1,6 @@
 """K2-K4: complete Jacobian point operations on G1 and G2 — the CUDA
-kernels (`csrc/point_ops.cu`, `csrc/point_scan.cu`), their plain PyTorch
-versions, and the launch counts.
+kernels (`csrc/point_ops.cu`, `csrc/point_scan.cu`, `csrc/point_tail.cu`),
+their plain PyTorch versions, and the launch counts.
 
 Counterpart of `zksnark_tpu/ops/curve_pallas.py` (`jac_madd`, `jac_add`,
 `jac_double` over `_madd_core`, `_add_core`, `_double_core`).  The plain
@@ -31,6 +31,14 @@ Chains, one launch each where the JAX package runs a `lax.scan` or
   `csrc/point_comb.cu`).
 Their plain versions are the loops of the elementwise plain versions.
 
+The MSM's tail (`csrc/point_tail.cu`):
+- `add_gather`: the add of rows gathered from two point tables, an index
+  < 0 standing for infinity: the bucket ends with their forward fill, the
+  chunk-carry fix-up and the Hillis-Steele rounds, each in one launch
+  without materializing the gathered, broadcast or shifted operands;
+- `abel`: the Abel step of one MSM's windows, 2^k (C + T) - R (an add, k
+  doublings, the negation and an add), one launch.
+
 Every entry runs its kernel on CUDA tensors (raising if it does not build
 or launch) and its plain version on CPU tensors.
 """
@@ -48,7 +56,7 @@ from ..curve.jacobian import JPoint
 # launches of each kernel entry; reset and read by chip_smoke.py
 LAUNCHES = {f"{op}_{g}": 0 for op in ("madd", "add", "double", "bucket_scan",
                                       "add_scan", "double_n", "horner",
-                                      "comb")
+                                      "comb", "add_gather", "abel")
             for g in ("g1", "g2")}
 
 COMB_WINDOWS, COMB_DIGITS = 32, 256     # 8-bit windows of a 256-bit scalar
@@ -273,6 +281,31 @@ def horner_plain(ops, sums: JPoint, c: int) -> JPoint:
     return acc
 
 
+def _take(ops, table: JPoint, idx: torch.Tensor) -> JPoint:
+    """Rows `idx` of a point table (its batch axes flattened, row-major),
+    infinity where idx < 0: shape idx.shape + elem."""
+    e = ops.elem_ndim
+    rows = idx.clamp(min=0).long()
+    got = JPoint(*(a.reshape((-1,) + a.shape[a.dim() - e:])[rows]
+                   for a in table))
+    return jac.select(ops, idx < 0, jac.infinity(ops, idx.shape,
+                                                 idx.device), got)
+
+
+def add_gather_plain(ops, p: JPoint, pi: torch.Tensor, q: JPoint,
+                     qi: torch.Tensor) -> JPoint:
+    """P[pi] + Q[qi]: `add_plain` on the gathered rows, an index < 0
+    standing for infinity (both < 0: the canonical infinity)."""
+    return add_plain(ops, _take(ops, p, pi), _take(ops, q, qi))
+
+
+def abel_plain(ops, c: JPoint, t: JPoint, r: JPoint, k: int) -> JPoint:
+    """2^k (C + T) - R: the add, k doublings, `jacobian.neg` and the add
+    of the MSM's Abel step."""
+    return add_plain(ops, double_n_plain(ops, add_plain(ops, c, t), k),
+                     jac.neg(ops, r))
+
+
 def comb_digits(scalars_std: torch.Tensor) -> torch.Tensor:
     """(m, 8) standard-form limbs -> (m, 32) int64 little-endian bytes
     (with 8-bit windows the comb windows ARE the bytes)."""
@@ -434,6 +467,31 @@ def _comb_cuda(ops, table: JPoint, scalars_std: torch.Tensor) -> JPoint:
     return out
 
 
+def _add_gather_cuda(ops, p: JPoint, pi, q: JPoint, qi) -> JPoint:
+    elem = _elem(ops)
+    ptab = [_flat(a, elem) for a in p]
+    qtab = [_flat(a, elem) for a in q]
+    if max(ptab[0].shape[0], qtab[0].shape[0]) >= 1 << 31:
+        raise ValueError("add_gather: a table of 2^31 rows or more")
+    pi, qi = pi.contiguous(), qi.contiguous()
+    out = _new(pi.shape, elem, pi.device)
+    if pi.numel():
+        _call("point_tail.cu", "add_gather", ops, pi.device, *_ptrs(ptab),
+              pi.data_ptr(), *_ptrs(qtab), qi.data_ptr(), *_ptrs(out),
+              pi.numel())
+    return out
+
+
+def _abel_cuda(ops, c: JPoint, t: JPoint, r: JPoint, k: int) -> JPoint:
+    elem = _elem(ops)
+    ins = [_flat(a, elem) for p in (c, t, r) for a in p]
+    out = _new(r.z.shape[:r.z.dim() - ops.elem_ndim], elem, r.z.device)
+    if ins[0].shape[0]:
+        _call("point_tail.cu", "abel", ops, r.z.device, *_ptrs(ins),
+              *_ptrs(out), ins[0].shape[0], k)
+    return out
+
+
 def _device(p: JPoint, op: str) -> str:
     dev = p.z.device.type
     if dev not in ("cuda", "cpu"):
@@ -506,6 +564,44 @@ def horner(ops, sums: JPoint, c: int) -> JPoint:
     if _device(sums, "horner") == "cuda":
         return _horner_cuda(ops, sums, c)
     return horner_plain(ops, sums, c)
+
+
+def add_gather(ops, p: JPoint, pi: torch.Tensor, q: JPoint,
+               qi: torch.Tensor) -> JPoint:
+    """P[pi] + Q[qi] for every entry of the int32 index tensors `pi` and
+    `qi` (one shape; the result has it): rows of the tables `p` and `q`
+    with their batch axes flattened, an index < 0 standing for infinity.
+    One launch on CUDA tensors; every index must be below its table's
+    rows (the kernel does not check)."""
+    if pi.dtype != torch.int32 or qi.dtype != torch.int32 \
+            or pi.shape != qi.shape:
+        raise ValueError(f"add_gather: pi and qi must be int32 of one "
+                         f"shape, got {pi.dtype} {tuple(pi.shape)} and "
+                         f"{qi.dtype} {tuple(qi.shape)}")
+    devs = {a.device for a in (*p, pi, *q, qi)}
+    if len(devs) != 1:
+        raise ValueError(f"add_gather: tensors on {sorted(map(str, devs))}")
+    if _device(p, "add_gather") == "cuda":
+        return _add_gather_cuda(ops, p, pi, q, qi)
+    return add_gather_plain(ops, p, pi, q, qi)
+
+
+def abel(ops, c: JPoint, t: JPoint, r: JPoint, k: int) -> JPoint:
+    """2^k (C + T) - R for every point of three batches of one shape: the
+    Abel step of an MSM's windows (C the last chunk carry, T the last
+    chunk total, R the tree sum of the filled bucket ends); one launch on
+    CUDA tensors."""
+    if k < 0:
+        raise ValueError(f"abel: k = {k} < 0")
+    shapes = {tuple(a.shape) for p in (c, t, r) for a in p}
+    devs = {a.device for p in (c, t, r) for a in p}
+    if len(shapes) != 1 or len(devs) != 1:
+        raise ValueError(f"abel: C, T and R must share one shape and "
+                         f"device, got {sorted(shapes)} on "
+                         f"{sorted(map(str, devs))}")
+    if _device(r, "abel") == "cuda":
+        return _abel_cuda(ops, c, t, r, k)
+    return abel_plain(ops, c, t, r, k)
 
 
 def comb(ops, table: JPoint, scalars_std: torch.Tensor) -> JPoint:

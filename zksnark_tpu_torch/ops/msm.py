@@ -19,14 +19,21 @@ Counterpart of `zksnark_tpu/ops/msm.py`, in the same formulation:
 - the windows are then combined by Horner, MSB window first.
 
 The JAX package maps the per-window procedure over windows with `vmap`;
-here the window is a batch axis of every tensor.  The Abel doubling chain
-and the Horner tail are one launch each (`curve_kernels.double_n`,
+here the window is a batch axis of every tensor.  The tail's adds read
+their operands through index tensors (`curve_kernels.add_gather`, an
+index < 0 standing for infinity), so no gathered, broadcast or shifted
+copy of a point array is made: the bucket ends with their forward fill,
+the chunk-carry fix-up and each Hillis-Steele round are one launch each.
+The Abel step (an add, the doubling chain, the negation and an add) and
+the Horner tail are one launch each (`curve_kernels.abel`,
 `curve_kernels.horner`).
 
 Scalars are standard-form (N, 8) int32 limbs; points are `JPoint` batches.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -51,18 +58,25 @@ def _batch_shape(ops, p: JPoint):
     return p.z.shape[:p.z.dim() - ops.elem_ndim]
 
 
+def _positions(ops, pts: JPoint, n: int) -> torch.Tensor:
+    """The flat row index of every point of the first n positions of
+    `pts` along axis 0, int32, in the shape of those positions."""
+    shape = (n,) + tuple(_batch_shape(ops, pts)[1:])
+    return torch.arange(math.prod(shape), dtype=torch.int32,
+                        device=pts.z.device).reshape(shape)
+
+
 def _hs_scan(ops, pts: JPoint) -> JPoint:
     """Inclusive Hillis-Steele prefix scan along axis 0 (identity =
-    infinity); only for small sizes."""
+    infinity); only for small sizes.  Round k adds the point 2^k
+    positions back (infinity before the start) to each point."""
     size = pts.z.shape[0]
     if size <= 1:
         return pts
-    rest = _batch_shape(ops, pts)[1:]
-    for i in range((size - 1).bit_length()):
-        shift = 1 << i
-        inf = jac.infinity(ops, (min(shift, size),) + rest, pts.z.device)
-        partner = _cat(inf, _index(pts, slice(0, size - shift)))
-        pts = jac.add(ops, partner, pts)
+    i = _positions(ops, pts, size)
+    r = i[0].numel()
+    for k in range((size - 1).bit_length()):
+        pts = ck.add_gather(ops, pts, i - (r << k), pts, i)
     return pts
 
 
@@ -97,9 +111,11 @@ def _prefix_scan(ops, pts: JPoint) -> JPoint:
     shifted = _cat(jac.infinity(ops, (1,) + rest, pts.z.device),
                    _index(totals, slice(0, b - 1)))
     carry = _prefix_scan(ops, shifted)                         # (B, ...)
-    full = jac.add(ops, JPoint(*(a.unsqueeze(1) for a in carry)), within)
-    full = JPoint(*(a.reshape((b * _CHUNK,) + a.shape[2:]) for a in full))
-    return _index(full, slice(0, n))
+    # position i (of the first n) gets its chunk's carry row added
+    i = _positions(ops, pts, n)
+    r = i[0].numel()
+    return ck.add_gather(ops, carry, i // (_CHUNK * r) * r + i % r,
+                         within, i)
 
 
 def tree_sum(ops, pts: JPoint) -> JPoint:
@@ -157,6 +173,26 @@ def _unpack(packed: torch.Tensor, elem) -> JPoint:
                     for k in range(3)))
 
 
+def _fill_indices(bucket_chunk: torch.Tensor, valid: torch.Tensor):
+    """The operands of the bucket ends' forward fill, as `add_gather`
+    indices laid out (num_buckets, W): E_j of window w, the prefix at the
+    end of the last NON-EMPTY bucket l <= j (an int running max over the
+    explicit validity flag, not the infinity sentinel), is carry row
+    (chunk of l) * W + w plus ends_w row w * num_buckets + l; both -1
+    (infinity) before the window's first bucket."""
+    W, nb = valid.shape
+    dev = valid.device
+    src = torch.where(valid, torch.arange(nb, dtype=torch.int32,
+                                          device=dev), -1)
+    last = torch.cummax(src, dim=1).values                    # (W, nb)
+    live = last >= 0
+    w = torch.arange(W, dtype=torch.int32, device=dev).unsqueeze(1)
+    chunk = torch.gather(bucket_chunk, 1, last.clamp(min=0).long())
+    pi = torch.where(live, chunk.to(torch.int32) * W + w, -1)
+    qi = torch.where(live, w * nb + last, -1)
+    return pi.t(), qi.t()
+
+
 def _bucket_windows_sorted(ops, pts: JPoint, order: torch.Tensor,
                            d_sorted: torch.Tensor, num_buckets: int,
                            affine: bool) -> JPoint:
@@ -165,7 +201,6 @@ def _bucket_windows_sorted(ops, pts: JPoint, order: torch.Tensor,
     Returns the (W,) window sums."""
     W, n = order.shape
     dev = pts.z.device
-    elem = pts.x.shape[1:]
     cdim = min(_CHUNK, n)
     b = -(-n // cdim)
 
@@ -181,29 +216,16 @@ def _bucket_windows_sorted(ops, pts: JPoint, order: torch.Tensor,
     shifted = _cat(jac.infinity(ops, (1, W), dev),
                    _index(totals, slice(0, b - 1)))
     carry = _prefix_scan(ops, shifted)                        # (B, W)
-    carry_rows = _pack(carry, (b * W,))
-    ends_c = _unpack(carry_rows[bucket_chunk * W + torch.arange(
-        W, device=dev).unsqueeze(1)], elem)
-    ends = jac.add(ops, ends_c, ends_w)                       # (W, nb)
 
-    # forward-fill E_j = prefix at the end of the last NON-EMPTY bucket
-    # <= j, from an explicit validity flag and an int running max
-    src = torch.where(valid, torch.arange(num_buckets, device=dev),
-                      torch.full((), -1, device=dev, dtype=torch.int64))
-    last_valid = torch.cummax(src, dim=1).values
-    filled = _unpack(torch.gather(
-        _pack(ends, (W, num_buckets)), 1,
-        last_valid.clamp(min=0).unsqueeze(-1).expand(
-            -1, -1, 3 * ends.x[0, 0].numel())), elem)
-    filled = jac.select(ops, last_valid < 0,
-                        jac.infinity(ops, (W, num_buckets), dev), filled)
+    # forward-filled bucket ends E_j, (num_buckets, W): one gather-add
+    pi, qi = _fill_indices(bucket_chunk, valid)
+    filled = ck.add_gather(ops, carry, pi, ends_w, qi)
 
     # Abel: sum_j j*B_j = num_buckets * E_top - sum_j E_j.  E_top is the
     # window's point total: last chunk carry + last chunk total.
-    e_top = jac.add(ops, _index(carry, b - 1), _index(totals, b - 1))
-    lhs = ck.double_n(ops, e_top, num_buckets.bit_length() - 1)
-    rhs = tree_sum(ops, JPoint(*(a.transpose(0, 1) for a in filled)))
-    return jac.add(ops, lhs, jac.neg(ops, rhs))
+    rhs = tree_sum(ops, filled)
+    return ck.abel(ops, _index(carry, b - 1), _index(totals, b - 1), rhs,
+                   num_buckets.bit_length() - 1)
 
 
 def window_sums(ops, pts: JPoint, scalar_limbs: torch.Tensor,
