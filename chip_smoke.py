@@ -2078,22 +2078,21 @@ def bound(nbytes: int, nops: int) -> dict:
 # reference and path phases
 # ---------------------------------------------------------------------------
 
-def _counters() -> tuple:
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-    from zksnark_tpu_torch.ops import montmul as mm
-    from zksnark_tpu_torch.ops import ntt
+def _profiling():
+    """`utils.profiling`, with the ops modules' launch counters
+    registered."""
+    from zksnark_tpu_torch.ops import curve_kernels, montmul, ntt  # noqa: F401
+    from zksnark_tpu_torch.utils import profiling
 
-    return mm.LAUNCHES, ntt.LAUNCHES, ck.LAUNCHES
+    return profiling
 
 
 def counts() -> dict:
-    return {k: v for d in _counters() for k, v in d.items()}
+    return _profiling().launch_counts()
 
 
 def reset_counts() -> None:
-    for d in _counters():
-        for k in d:
-            d[k] = 0
+    _profiling().reset_launch_counts()
 
 
 def diff(after: dict, before: dict) -> dict:
@@ -2406,7 +2405,8 @@ def keccak_phase(dev, n_bytes: int, n_proves: int) -> dict:
 # runs a module as `python -m MODULE` does (runpy), then writes the kernel
 # launches of its process to stderr: python -c SHIM MODULE ARGS...
 MODULE_SHIM = """import json, runpy, sys
-from zksnark_tpu_torch.ops import curve_kernels, montmul, ntt
+from zksnark_tpu_torch.ops import curve_kernels, montmul, ntt  # counters
+from zksnark_tpu_torch.utils.profiling import launch_counts
 module = sys.argv.pop(1)
 sys.argv[0] = module
 try:
@@ -2414,9 +2414,7 @@ try:
     code = 0
 except SystemExit as e:
     code = e.code
-print("LAUNCHES " + json.dumps({k: v for d in (montmul.LAUNCHES,
-      ntt.LAUNCHES, curve_kernels.LAUNCHES) for k, v in d.items()}),
-      file=sys.stderr)
+print("LAUNCHES " + json.dumps(launch_counts()), file=sys.stderr)
 sys.exit(code)
 """
 
@@ -2886,22 +2884,19 @@ from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
 from zksnark_tpu_torch.field import params
 from zksnark_tpu_torch.groth16 import protocol, prover
 from zksnark_tpu_torch.groth16.backend import BN254Backend
-from zksnark_tpu_torch.ops import curve_kernels, montmul, ntt
+from zksnark_tpu_torch.ops import curve_kernels, montmul, ntt  # counters
 from zksnark_tpu_torch.parallel import multihost
+from zksnark_tpu_torch.utils import profiling
 from zksnark_tpu_torch.utils.serialization import proof_to_json
 
 backend = sys.argv[1]
 world, rank, log_n, port, n_proves = map(int, sys.argv[2:7])
-COUNTERS = (montmul.LAUNCHES, ntt.LAUNCHES, curve_kernels.LAUNCHES)
 
 
 def report(label):
-    print("LAUNCHES " + label + " " + json.dumps(
-        {k: v for d in COUNTERS for k, v in d.items()}), file=sys.stderr,
-        flush=True)
-    for d in COUNTERS:
-        for k in d:
-            d[k] = 0
+    print("LAUNCHES " + label + " " + json.dumps(profiling.launch_counts()),
+          file=sys.stderr, flush=True)
+    profiling.reset_launch_counts()
 
 
 multihost.init_distributed(f"tcp://127.0.0.1:{port}", world, rank,

@@ -258,15 +258,17 @@ def test_is_infinity():
 
 @pytest.mark.parametrize("n,c", [(1 << 10, 7), (1 << 20, 16), (64, 4)])
 def test_work_counts_match_jax(n, c):
-    mine, theirs = profiling.msm_work(n, c), jprof.msm_work(n, c)
-    assert mine["point_adds"] == theirs["point_adds"]
-    assert mine["gexp_equiv"] == theirs["gexp_equiv"] == n
-    # the port counts 32-bit multiply-adds, 264 per Montgomery product
+    # the port counts 32-bit multiply-adds, 264 per Montgomery product;
+    # the JAX package 8-bit digit multiply-adds, 3 x 32 x 32 per product
     assert profiling.MULADDS_PER_MONT_MUL == 264
-    assert mine["limb_muls"] == mine["point_adds"] * 16 * 264
     nm, nt = profiling.ntt_work(n), jprof.ntt_work(n)
     assert nm["butterflies"] == nt["butterflies"]
     assert nm["limb_muls"] == nm["butterflies"] * 264
+    assert nt["limb_muls"] == nt["butterflies"] * 3 * 32 * 32
+    # a transform of n / 2^c points: the same butterflies on both sides
+    small = max(2, n >> c)
+    assert (profiling.ntt_work(small)["butterflies"]
+            == jprof.ntt_work(small)["butterflies"])
 
 
 def test_phase_timer():
@@ -275,11 +277,11 @@ def test_phase_timer():
         pass
     with t.phase("a", block_on=(torch.zeros(1), [torch.ones(1)])):
         pass
-    t.count("ops", 10)
-    assert set(t.phases) == {"a"} and t.phases["a"] >= 0
-    assert t.rate("ops", "missing") is None
+    with pytest.raises(ValueError), t.phase("b"):
+        raise ValueError("the phase still counts")
+    assert set(t.phases) == {"a", "b"} and t.phases["a"] >= 0
     rep = json.loads(t.report())
-    assert rep["counters"] == {"ops": 10} and "a" in rep["phases_s"]
+    assert set(rep) == {"phases_s"} and set(rep["phases_s"]) == {"a", "b"}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,264 @@
+"""The port's span recorder around `device_prove` and its launch registry
+(`zksnark_tpu_torch/utils/profiling.py`), on the CPU at 7 gates.
+
+The device pipeline (`prover._prove_core`: the quotient and the five
+MSMs, ~10 s a prove in the CPU's plain versions) is stood in for by
+fixed points, and the CRS by small multiples of the generators, so that
+these tests stay small; the spans, the witness's codec and upload, its
+Montgomery form and the host assembly run as they are.  The benchmark's
+tests prove through the whole pipeline with the recorder on
+(`benchmark/tests/test_benchmark_spans.py`).
+"""
+
+import sys
+import threading
+
+import pytest
+import torch
+
+from zksnark_tpu_torch.bench import synthetic_square_chain
+from zksnark_tpu_torch.curve import bn254 as hc
+from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
+from zksnark_tpu_torch.groth16 import prover
+from zksnark_tpu_torch.groth16.protocol import SigmaG1, SigmaG2
+from zksnark_tpu_torch.ops import curve_kernels, montmul, ntt
+from zksnark_tpu_torch.utils import profiling
+
+STAGES = ["prove.encode", "prove.issue", "prove.wait", "prove.assemble"]
+
+
+def _point(ops, pt):
+    return prover.JPoint(*(a[0] for a in prover._host_points_to_jac(
+        ops, [pt], "cpu")))
+
+
+@pytest.fixture(scope="module")
+def circuit():
+    r1cs, wit = synthetic_square_chain(7)
+    dq = prover.compile_r1cs(r1cs, device="cpu")
+    g1 = [hc.g1_scalar_mul(hc.G1_GEN_PT, k) for k in (2, 3, 5, 7, 11, 13)]
+    g2 = [hc.g2_scalar_mul(hc.G2_GEN, k) for k in (3, 4, 5, 17)]
+    crs = prover.DeviceCRS(
+        xi_g1=None, xi_t_g1=None, sum_delta_g1=None, xi_g2=None,
+        sigmag1=SigmaG1(alpha=g1[0], beta=g1[1], delta=g1[2], xi=None,
+                        sum_gamma=[], sum_delta=None, xi_t=None),
+        sigmag2=SigmaG2(beta=g2[0], gamma=g2[1], delta=g2[2], xi=None))
+    core = (_point(FQ_OPS, g1[3]), _point(FQ_OPS, g1[4]),
+            _point(FQ2_OPS, g2[3]), _point(FQ_OPS, g1[5]),
+            _point(FQ_OPS, g1[0]))
+    return dq, crs, wit, core
+
+
+@pytest.fixture
+def prove(circuit, monkeypatch):
+    """device_prove at 7 gates with the stood-in device pipeline; `hold`,
+    where given, is called inside it (in `prove.issue`)."""
+    dq, crs, wit, core = circuit
+    hold = []
+
+    def fake_core(domain, n_input, window_bits, ells, crs_arrays,
+                  weights_mont, marks=None):
+        assert marks is None            # no marks on the CPU
+        for h in hold:
+            h()
+        return core
+
+    monkeypatch.setattr(prover, "_prove_core", fake_core)
+
+    def run(blinding=(7, 9)):
+        return prover.device_prove(dq, crs, wit, blinding=blinding)
+
+    run.hold = hold
+    return run
+
+
+@pytest.fixture(autouse=True)
+def _no_spans():
+    profiling.clear_spans()
+    yield
+    profiling.clear_spans()
+
+
+def _tree(spans, root):
+    return [s for s in spans if s.prove == root.id and s is not root]
+
+
+def test_one_prove_one_tree(prove, circuit):
+    plain = prove()
+    assert profiling.spans() == []
+    with profiling.tracing():
+        traced = prove()
+    assert traced == plain
+    spans = profiling.spans()
+    roots = [s for s in spans if s.name == "prove"]
+    assert len(roots) == 1
+    root = roots[0]
+    assert root.parent is None and root.prove == root.id and root.ok
+    kids = sorted(_tree(spans, root), key=lambda s: s.start_ns)
+    assert [s.name for s in kids] == STAGES
+    assert len(spans) == 5
+    assert kids[0].attrs == {"wires": circuit[0].num_wires}
+    t = root.start_ns
+    for s in kids:
+        assert s.parent == root.id and s.clock == "epoch" and s.ok
+        assert t <= s.start_ns <= s.end_ns <= root.end_ns
+        t = s.end_ns
+
+
+def test_nothing_recorded_when_off(prove):
+    prove()
+    assert not profiling.recording()
+    with profiling.span("prove"):
+        with profiling.span("prove.encode"):
+            assert not profiling.recording()
+            assert profiling.stream_marks(torch.device("cpu")) is None
+    assert profiling.spans() == []
+
+
+def test_exception_marks_the_span(prove):
+    def fail():
+        raise RuntimeError("stop")
+
+    prove.hold.append(fail)
+    with profiling.tracing(), pytest.raises(RuntimeError):
+        prove()
+    got = {s.name: s.ok for s in profiling.spans()}
+    assert got == {"prove.encode": True, "prove.issue": False,
+                   "prove": False}
+
+
+def _names(prof):
+    return sorted(ev.name() for ev in prof.profiler.kineto_results.events())
+
+
+def _profiled(prove):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("outer"):
+            proof = prove()
+    return prof, proof
+
+
+def test_profiler_turns_the_recorder_on(prove, monkeypatch):
+    prove()                                # caches filled outside
+    prof, proof = _profiled(prove)
+    roots = [s for s in profiling.spans() if s.name == "prove"]
+    assert len(roots) == 1 and len(profiling.spans()) == 5
+    root = roots[0]
+    outer = [ev for ev in prof.profiler.kineto_results.events()
+             if ev.name() == "outer"]
+    assert len(outer) == 1
+    o0 = outer[0].start_ns()
+    o1 = o0 + outer[0].duration_ns()
+    ms = 1_000_000
+    assert o0 - ms <= root.start_ns and root.end_ns <= o1 + ms
+    assert root.end_ns - root.start_ns <= o1 - o0 + ms
+    # the program's spans add no profiler event
+    profiling.clear_spans()
+    monkeypatch.setattr(profiling, "_profiler_on", lambda: False)
+    prof_off, proof_off = _profiled(prove)
+    assert profiling.spans() == []
+    assert proof_off == proof
+    assert _names(prof_off) == _names(prof)
+
+
+def test_threads_keep_separate_trees(prove):
+    both = threading.Barrier(2, timeout=30)
+    prove.hold.append(both.wait)
+    out = {}
+
+    def client(k):
+        out[k] = prove(blinding=(7 + k, 9))
+
+    with profiling.tracing():
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    spans = profiling.spans()
+    roots = [s for s in spans if s.name == "prove"]
+    assert len(roots) == 2 and len(spans) == 10 and out[0] != out[1]
+    issues = []
+    for root in roots:
+        kids = sorted(_tree(spans, root), key=lambda s: s.start_ns)
+        assert [s.name for s in kids] == STAGES
+        assert all(s.parent == root.id for s in kids)
+        issues.append(kids[1])
+    a, b = issues                          # both held at the barrier at once
+    assert a.start_ns < b.end_ns and b.start_ns < a.end_ns
+
+
+def test_stress_many_threads_one_recorder():
+    """More threads than cores opening trees at once, switching often:
+    every span lands once, in its own thread's tree."""
+    trees, threads_n = 100, 16
+    saved = sys.getswitchinterval()
+    errors = []
+
+    def worker(k):
+        try:
+            for _ in range(trees):
+                with profiling.span("prove", thread=k):
+                    for name in STAGES:
+                        with profiling.span(name, thread=k):
+                            pass
+        except Exception as e:             # reported by the assert below
+            errors.append(e)
+
+    sys.setswitchinterval(1e-6)
+    try:
+        with profiling.tracing():
+            threads = [threading.Thread(target=worker, args=(k,))
+                       for k in range(threads_n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(saved)
+    assert not any(t.is_alive() for t in threads) and not errors
+    spans = profiling.spans()
+    assert len(spans) == threads_n * trees * 5
+    assert len({s.id for s in spans}) == len(spans)
+    by_id = {s.id: s for s in spans}
+    roots = [s for s in spans if s.name == "prove"]
+    assert len(roots) == threads_n * trees
+    for s in spans:
+        if s.name != "prove":
+            root = by_id[s.parent]
+            assert root.name == "prove" and s.prove == root.id
+            assert s.attrs == root.attrs
+            assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+
+
+def test_phase_timer_spans():
+    t = profiling.PhaseTimer()
+    with profiling.tracing():
+        with t.phase("sigma (host)"):
+            pass
+    (s,) = profiling.spans()
+    assert s.name == "sigma (host)" and s.parent is None and s.prove is None
+    assert set(t.phases) == {"sigma (host)"}
+
+
+def test_launch_registry():
+    reg = profiling.launch_counters()
+    for mod in (montmul, ntt, curve_kernels):
+        assert reg[mod.__name__] is mod.LAUNCHES
+    total = profiling.launch_counts()
+    want = {}
+    for counter in reg.values():
+        for k, v in counter.items():
+            want[k] = want.get(k, 0) + v
+    assert total == want
+    keys = [k for mod in (montmul, ntt, curve_kernels) for k in mod.LAUNCHES]
+    assert len(keys) == len(set(keys)) and set(keys) <= set(total)
+    saved = dict(ntt.LAUNCHES)
+    try:
+        ntt.LAUNCHES["ntt_fr"] += 3
+        assert profiling.launch_counts()["ntt_fr"] == total["ntt_fr"] + 3
+    finally:
+        ntt.LAUNCHES.update(saved)

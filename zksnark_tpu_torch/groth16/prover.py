@@ -52,6 +52,7 @@ from ..ops import msm as msmod
 from ..ops import ntt as nttmod
 from ..ops import scans
 from ..ops.montmul import from_mont, mont_mul
+from ..utils import profiling
 from .protocol import Proof, SigmaG1, SigmaG2
 
 L = params.NUM_LIMBS
@@ -406,13 +407,17 @@ def _pad_msm(ops, pts: JPoint, scalars: torch.Tensor, n: int):
 
 
 def _prove_core(domain, n_input: int, window_bits: int, ells, crs_arrays,
-                weights_mont):
+                weights_mont, marks=None):
     """Quotient, then the four G1 MSMs (padded to one common size, as in
-    the JAX package; their Horner tails in one launch) and the G2 MSM."""
+    the JAX package; their Horner tails in one launch) and the G2 MSM.
+    marks: `utils.profiling.StreamMarks` that get a mark after the
+    quotient and one after the G2 MSM."""
     xi_g1, xi_t_g1, sum_delta_g1, xi_g2 = crs_arrays
     n = domain.n
     u_std, v_std, h_std, wit_std = _witness_quotient(
         domain, n_input, ells, weights_mont)
+    if marks is not None:
+        marks.mark()
     wb = window_bits
     m = max(n, sum_delta_g1.z.shape[0], wit_std.shape[0])
     xi_p, u_p = _pad_msm(FQ_OPS, xi_g1, u_std, m)
@@ -424,6 +429,8 @@ def _prove_core(domain, n_input: int, window_bits: int, ells, crs_arrays,
     a_g1, b_g1, h_xt, c_delta = msmod.msm_windowed_batch(
         FQ_OPS, [(xi_p, u_p), (xi_p, v_p), (hp, hs), (dp, ds)], wb, True)
     b_g2 = msmod.msm_windowed(FQ2_OPS, xi_g2, v_std, wb, True)
+    if marks is not None:
+        marks.mark()
     return a_g1, b_g1, b_g2, h_xt, c_delta
 
 
@@ -441,52 +448,77 @@ def device_prove(
     mesh: the device pipeline runs the distributed four-step quotient and
     point-sharded MSMs (`parallel.prove_sharded`); the domain must hold
     n >= mesh size^2 (the four-step split).  Every rank returns the same
-    proof."""
+    proof.
+
+    Spans (`utils.profiling`, where the profiler or `tracing()` is on): a
+    root `prove` and its four stages in turn, `prove.encode` (the
+    blinding, the witness's limbs on the host), `prove.issue` (the
+    upload, the Montgomery form and every launch), `prove.wait` (the host
+    waiting for the card: one synchronize) and `prove.assemble` (the
+    affine points and the host's blinding arithmetic); on one CUDA card
+    also the device spans `quotient` (from before the Montgomery form to
+    the quotient's end) and `msm` (to the G2 MSM's end) from marks on
+    the stream."""
     dev = dqap.device
     f = FR_CTX.p
-    if blinding is None:
-        rr = rng or _random
-        blinding = _rank0_ints(mesh, [rr.randrange(1, f),
-                                      rr.randrange(1, f)])
-    r, s = (b % f for b in blinding)
+    with profiling.span("prove"):
+        with profiling.span("prove.encode", wires=dqap.num_wires):
+            if blinding is None:
+                rr = rng or _random
+                blinding = _rank0_ints(mesh, [rr.randrange(1, f),
+                                              rr.randrange(1, f)])
+            r, s = (b % f for b in blinding)
+            w_full = list(weights) + [0] * (dqap.num_wires - len(weights))
+            # standard-form limbs on the host (bytes codec), Montgomery
+            # form on the device (one product with R^2)
+            w_limbs = FR_CTX.to_limbs_np(w_full)
 
-    w_full = list(weights) + [0] * (dqap.num_wires - len(weights))
-    # standard-form limbs on the host (bytes codec), Montgomery form on
-    # the device (one product with R^2)
-    w_std = torch.from_numpy(FR_CTX.to_limbs_np(w_full)).to(dev)
-    weights_mont = mont_mul(FR_CTX, w_std, FR_CTX.const("r2", dev))
+        with profiling.span("prove.issue"):
+            marks = profiling.stream_marks(dev) if mesh is None else None
+            w_std = torch.from_numpy(w_limbs).to(dev)
+            if marks is not None:
+                marks.mark()
+            weights_mont = mont_mul(FR_CTX, w_std, FR_CTX.const("r2", dev))
+            ells = (dqap.u, dqap.v, dqap.w)
+            crs_arrays = (crs.xi_g1, crs.xi_t_g1, crs.sum_delta_g1,
+                          crs.xi_g2)
+            if mesh is None:
+                a_g1, b_g1, b_g2, h_xt, c_delta = _prove_core(
+                    dqap.domain, dqap.input, msmod.pick_window_bits(dqap.n),
+                    ells, crs_arrays, weights_mont, marks)
+            else:
+                from ..parallel import prove_sharded as psh
 
-    ells = (dqap.u, dqap.v, dqap.w)
-    crs_arrays = (crs.xi_g1, crs.xi_t_g1, crs.sum_delta_g1, crs.xi_g2)
-    if mesh is None:
-        a_g1, b_g1, b_g2, h_xt, c_delta = _prove_core(
-            dqap.domain, dqap.input, msmod.pick_window_bits(dqap.n), ells,
-            crs_arrays, weights_mont)
-    else:
-        from ..parallel import prove_sharded as psh
+                window_bits = msmod.pick_window_bits(
+                    max(64, dqap.n // mesh.size))
+                a_g1, b_g1, b_g2, h_xt, c_delta = psh.sharded_prove_step(
+                    mesh, dqap.domain, dqap.input, window_bits, ells,
+                    crs_arrays, weights_mont, num_wires=dqap.num_wires)
 
-        window_bits = msmod.pick_window_bits(max(64, dqap.n // mesh.size))
-        a_g1, b_g1, b_g2, h_xt, c_delta = psh.sharded_prove_step(
-            mesh, dqap.domain, dqap.input, window_bits, ells, crs_arrays,
-            weights_mont, num_wires=dqap.num_wires)
+        with profiling.span("prove.wait"):
+            if profiling.recording() and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        if marks is not None:
+            marks.close(("quotient", "msm"))
 
-    a_aff = jac.to_affine_np(FQ_OPS, a_g1)
-    b1_aff = jac.to_affine_np(FQ_OPS, b_g1)
-    b2_aff = jac.to_affine_np(FQ2_OPS, b_g2)
-    hxt_aff = jac.to_affine_np(FQ_OPS, h_xt)
-    cdelta_aff = jac.to_affine_np(FQ_OPS, c_delta)
+        with profiling.span("prove.assemble"):
+            a_aff = jac.to_affine_np(FQ_OPS, a_g1)
+            b1_aff = jac.to_affine_np(FQ_OPS, b_g1)
+            b2_aff = jac.to_affine_np(FQ2_OPS, b_g2)
+            hxt_aff = jac.to_affine_np(FQ_OPS, h_xt)
+            cdelta_aff = jac.to_affine_np(FQ_OPS, c_delta)
 
-    sg1, sg2 = crs.sigmag1, crs.sigmag2
-    a = hc.g1_add(hc.g1_add(a_aff, sg1.alpha),
-                  hc.g1_scalar_mul(sg1.delta, r))
-    b = hc.g2_add(hc.g2_add(b2_aff, sg2.beta),
-                  hc.g2_scalar_mul(sg2.delta, s))
+            sg1, sg2 = crs.sigmag1, crs.sigmag2
+            a = hc.g1_add(hc.g1_add(a_aff, sg1.alpha),
+                          hc.g1_scalar_mul(sg1.delta, r))
+            b = hc.g2_add(hc.g2_add(b2_aff, sg2.beta),
+                          hc.g2_scalar_mul(sg2.delta, s))
 
-    c = hc.g1_add(hxt_aff, cdelta_aff)
-    c = hc.g1_add(c, hc.g1_scalar_mul(a, s))
-    inner = hc.g1_add(hc.g1_add(sg1.beta, b1_aff),
-                      hc.g1_scalar_mul(sg1.delta, s))
-    c = hc.g1_add(c, hc.g1_scalar_mul(inner, r))
-    c = hc.g1_add(c, hc.g1_neg(hc.g1_scalar_mul(sg1.delta, r * s % f)))
-
-    return Proof(a=a, b=b, c=c)
+            c = hc.g1_add(hxt_aff, cdelta_aff)
+            c = hc.g1_add(c, hc.g1_scalar_mul(a, s))
+            inner = hc.g1_add(hc.g1_add(sg1.beta, b1_aff),
+                              hc.g1_scalar_mul(sg1.delta, s))
+            c = hc.g1_add(c, hc.g1_scalar_mul(inner, r))
+            c = hc.g1_add(c, hc.g1_neg(hc.g1_scalar_mul(sg1.delta,
+                                                        r * s % f)))
+            return Proof(a=a, b=b, c=c)

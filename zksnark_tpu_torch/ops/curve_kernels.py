@@ -52,12 +52,13 @@ import torch
 from .. import _build
 from ..curve import jacobian as jac
 from ..curve.jacobian import JPoint
+from ..utils import profiling
 
-# launches of each kernel entry; reset and read by chip_smoke.py
-LAUNCHES = {f"{op}_{g}": 0 for op in ("madd", "add", "double", "bucket_scan",
-                                      "add_scan", "double_n", "horner",
-                                      "comb", "add_gather", "abel")
-            for g in ("g1", "g2")}
+# launches of each kernel entry (`profiling.launch_counts()`)
+LAUNCHES = profiling.launch_counter(__name__, (
+    f"{op}_{g}" for op in ("madd", "add", "double", "bucket_scan", "add_scan",
+                           "double_n", "horner", "comb", "add_gather", "abel")
+    for g in ("g1", "g2")))
 
 COMB_WINDOWS, COMB_DIGITS = 32, 256     # 8-bit windows of a 256-bit scalar
 

@@ -25,12 +25,14 @@ import torch
 from .. import _build
 from ..field import limb
 from ..field.limb import FR_CTX, MontCtx
+from ..utils import profiling
 
 L = limb.L
 
-# launches of the kernels, by field; reset and read by chip_smoke.py
-LAUNCHES = {"montmul_fr": 0, "montmul_fq": 0, "mont_scan_fq": 0,
-            "mont_scan_fq2": 0, "normalize_fq": 0, "normalize_fq2": 0}
+# launches of the kernels, by field (`profiling.launch_counts()`)
+LAUNCHES = profiling.launch_counter(__name__, (
+    "montmul_fr", "montmul_fq", "mont_scan_fq", "mont_scan_fq2",
+    "normalize_fq", "normalize_fq2"))
 
 
 def kernel_name(ctx: MontCtx) -> str:

@@ -34,13 +34,14 @@ from .._device import resolve_device
 from ..field import limb, params
 from ..field.limb import FR_CTX, MontCtx, sub
 from .montmul import mont_mul
+from ..utils import profiling
 
 L = params.NUM_LIMBS
 MAX_PASS_LOG = 10      # a pass runs at most 10 stages: 2^10 elements
 
 # launches of the NTT kernel (one per pass), on one transform and on a
-# batch of more than one; reset and read by chip_smoke.py
-LAUNCHES = {"ntt_fr": 0, "ntt_fr_batched": 0}
+# batch of more than one (`profiling.launch_counts()`)
+LAUNCHES = profiling.launch_counter(__name__, ("ntt_fr", "ntt_fr_batched"))
 
 
 def pass_widths(log_n: int) -> tuple:
