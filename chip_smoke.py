@@ -61,8 +61,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the scan `scan_launches(n)` times for each of a set's two prefix
    products and the elementwise madd and Fq product not at all; each
    prove (`prove_expect`) must launch per MSM (four G1, one G2) the
-   bucket scan once, add_gather `gather_launches(m)` times (5 at m =
-   2^20: 20 G1, 5 G2) and abel once, the elementwise madd, add and
+   bucket scan once, add_gather `gather_launches(m)` times (6 at m =
+   2^20 + 3 and 2^20 + 2, the blinding's points appended: 24 G1, 6 G2)
+   and abel once, the elementwise madd, add and
    double_n not at all, and the NTT kernel once per pass of its seven
    transforms.  A second setup
    is then timed phase by phase (scalars, host sigma points, comb,
@@ -112,8 +113,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    of `[path]` at 2^20, two more made here at 2^18), verify on [x] and
    be rejected on [x + 1]; each prove must launch the batched NTT once
    per pass of its seven four-step transforms (both halves), the bucket
-   scan once per MSM, add_gather `gather_launches(n / world)` times per
-   MSM (5, 7, 6 at world 1, 2, 4) and abel once per MSM, and no
+   scan once per MSM, add_gather `gather_launches` times per MSM over
+   a rank's n / world points, 3 more in A's and C's, 2 more in B's (the
+   blinding's), and abel once per MSM, and no
    single-transform NTT or elementwise madd, add or double_n,
    and setup and the proves together every kernel entry of the mesh
    path (all but the elementwise double, madd, add, double_n and Fq
@@ -169,6 +171,7 @@ OPS_PER_ADD = 16
 
 TPU_KERNELS = {
     "montmul": "zksnark_tpu/ops/montmul.py:42",
+    "montmul_add": "zksnark_tpu/ops/montmul.py:42",
     "ntt": "zksnark_tpu/ops/montmul.py:42",
     "madd": "zksnark_tpu/ops/curve_pallas.py:291",
     "bucket_scan": "zksnark_tpu/ops/curve_pallas.py:291",
@@ -185,6 +188,7 @@ TPU_KERNELS = {
 }
 SOURCES = {
     "montmul": "zksnark_tpu_torch/csrc/montmul.cu",
+    "montmul_add": "zksnark_tpu_torch/csrc/montmul.cu",
     "ntt": "zksnark_tpu_torch/csrc/ntt.cu",
     "madd": "zksnark_tpu_torch/csrc/point_ops.cu",
     "bucket_scan": "zksnark_tpu_torch/csrc/point_scan.cu",
@@ -347,6 +351,33 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
                          "host_edge_ok": sem, "n_checked": len(a)}
         log(f"[kernels] {name}: {len(a)} products, max |kernel - plain| "
             f"= {err}, edge values vs host ints {'ok' if sem else 'FAIL'}")
+
+    # K1 fused with an add (the prover's s u + r v): random and edge
+    # operands against the plain version and host ints, an (x, y) pair of
+    # edge values a launch and one random pair
+    p = FR_CTX.p
+    edge = [0, 1, p - 1, p - 2, (p - 1) // 2, FR_CTX.r_int]
+    ea = [x for x in edge for _ in edge]
+    eb = [y for _ in edge for y in edge]
+    a = np.concatenate([rand_field(rng, p, (n_rand,)), ea])
+    b = np.concatenate([rand_field(rng, p, (n_rand,)), eb])
+    ta = torch.from_numpy(FR_CTX.to_limbs_np(a)).to(dev)
+    tb = torch.from_numpy(FR_CTX.to_limbs_np(b)).to(dev)
+    rinv = pow(1 << 256, -1, p)
+    err, sem = 0, True
+    for xy in [(p - 1, p - 2), (0, 1), (FR_CTX.r_int, (p - 1) // 2),
+               tuple(int(v) for v in rand_field(rng, p, (2,)))]:
+        txy = torch.from_numpy(FR_CTX.to_limbs_np(list(xy))).to(dev)
+        got = mm.mont_mul_add(ta, tb, txy)
+        err = max(err, limb_err(got, mm.mont_mul_add_plain(ta, tb, txy)))
+        vals = FR_CTX.from_limbs_np(got[-len(ea):].cpu().numpy())
+        sem = sem and all(int(v) == (u * xy[0] + w * xy[1]) * rinv % p
+                          for v, u, w in zip(vals, ea, eb))
+    results["montmul_add_fr"] = {"max_abs_err": err, "bit_exact": err == 0,
+                                 "host_edge_ok": sem, "n_checked": len(a)}
+    log(f"[kernels] montmul_add_fr: 4 x {len(a)} products and sums, max "
+        f"|kernel - plain| = {err}, edge values vs host ints "
+        f"{'ok' if sem else 'FAIL'}")
 
     # -- K2-K4 ----------------------------------------------------------------
     for ops, g in ((FQ_OPS, "g1"), (FQ2_OPS, "g2")):
@@ -1270,6 +1301,22 @@ def time_phase(dev, seed: int, results: dict) -> None:
             f"({results[name]['bound_by']}); max |kernel - plain| at "
             f"n={checked} = {err}")
 
+    # the prover's s u + r v: two products with broadcast operands and a
+    # sum over the 2^20 coefficients
+    n = shapes["montmul_add_fr"]
+    a, b, xy = rnd(n, FR_CTX), rnd(n, FR_CTX), rnd(2, FR_CTX)
+    ms, got = time_cuda(lambda: mm.mont_mul_add(a, b, xy), 50)
+    plain_ms, want = time_cuda(lambda: mm.mont_mul_add_plain(a, b, xy), 3)
+    err = limb_err(got, want)
+    results["montmul_add_fr"].update(
+        shape=[n], ms=ms, plain_ms=plain_ms, path_shape_err=err,
+        checked_shapes=[n], **bound(3 * 32 * n,
+                                    (2 * IMAD_PER_MUL + OPS_PER_ADD) * n))
+    log(f"[timing] montmul_add_fr n={n}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {results['montmul_add_fr']['bound_ms']:.4f}"
+        f" ms ({results['montmul_add_fr']['bound_by']}); max |kernel - "
+        f"plain| = {err}")
+
     for ops, g in ((FQ_OPS, "g1"), (FQ2_OPS, "g2")):
         elem = () if g == "g1" else (2,)
         for op in ("madd", "add", "double"):
@@ -1348,7 +1395,8 @@ def time_phase(dev, seed: int, results: dict) -> None:
 # comb (the bucket scan runs the MSM's mixed adds); add at the former
 # MSM bucket ends (16 windows x 2^16 buckets; add_gather runs them); double
 # at the former Abel step (one point per window; abel runs it)
-PATH_SHAPES = {"montmul_fr": 1 << 20, "montmul_fq": 1 << 14,
+PATH_SHAPES = {"montmul_fr": 1 << 20, "montmul_add_fr": 1 << 20,
+               "montmul_fq": 1 << 14,
                "madd": 1 << 20, "add": 1 << 20, "double": 16}
 # the elementwise add's former shapes in one 2^20 MSM (c = 16), now run
 # by add_gather and abel: bucket ends, the two chunk-carry fix-ups, the
@@ -1515,7 +1563,7 @@ C_MSM_SHAPE = {"windows": 16, "c": 16, "n": 1 << 18, "points": 231761}
 def bucket_c_msm(rnd_elem, gen, results) -> None:
     """The G1 bucket scan at the C MSM's digit columns (one run across
     all 4,096 chunks in 15 windows, two in window 0), the table padded
-    with infinity as `_pad_msm` pads it: kernel and plain version on the
+    with infinity as the prove pads it: kernel and plain version on the
     same inputs, compared and timed; then the same table with random
     digits, to tell the digits' share of the time from the size's."""
     from zksnark_tpu_torch.curve import jacobian as jac
@@ -2148,12 +2196,14 @@ def gather_launches(m: int) -> int:
 
 def prove_expect(dqap, crs) -> dict:
     """The launches of one single-device `device_prove`: per MSM (four
-    G1 over max(n, C's points) points, one G2 over n) one bucket scan,
-    `gather_launches` add_gathers and one abel; the NTT kernel once per
-    pass of each of the seven transforms; no elementwise madd, add or
-    double_n."""
-    m1 = max(dqap.n, crs.sum_delta_g1.z.shape[0])
-    m2 = crs.xi_g2.z.shape[0]
+    G1 over max(n + 3, C's points) points, one G2 over n + 2: the
+    CRS's `prove_sets`) one bucket scan, `gather_launches` add_gathers
+    and one abel; the NTT kernel once per pass of each of the seven
+    transforms; no elementwise madd, add or double_n."""
+    from zksnark_tpu_torch.groth16 import prover
+
+    sets = prover.prove_sets(crs)
+    m1, m2 = sets.xi_g1.z.shape[0], sets.xi_g2.z.shape[0]
     return {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
             "madd_g2": 0, "add_g1": 0, "add_g2": 0, "double_n_g1": 0,
             "double_n_g2": 0, "add_gather_g1": 4 * gather_launches(m1),
@@ -2998,12 +3048,16 @@ def mesh_run(backend: str, world: int, log_n: int, want: list) -> dict:
                          f"stderr:\n{outs[r][1][-3000:]}")
     split = psh.four_step_split(log_n, world)
     passes = sum(len(ntt.pass_widths(k)) for k in split)
-    # per MSM a rank runs n / world points (a power of two)
-    tail = gather_launches((1 << log_n) // world)
+    # per MSM a rank runs n / world points, and the blinding's 3 (A and
+    # C - h - c_delta) or 2 (B) appended
+    per = (1 << log_n) // world
     expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
               "madd_g2": 0, "add_g1": 0, "add_g2": 0, "double_n_g1": 0,
-              "double_n_g2": 0, "add_gather_g1": 4 * tail,
-              "add_gather_g2": tail, "abel_g1": 4, "abel_g2": 1,
+              "double_n_g2": 0,
+              "add_gather_g1": 2 * (gather_launches(per + 3)
+                                    + gather_launches(per)),
+              "add_gather_g2": gather_launches(per + 2), "abel_g1": 4,
+              "abel_g2": 1,
               "ntt_fr": 0, "ntt_fr_batched": 7 * passes}
     log(f"[mesh] {label}: per prove and rank expected {expect}")
     ranks = []
@@ -3155,16 +3209,21 @@ def profile_phase(dqap, crs, wit, table_path: str) -> None:
                           "iNTT)", lambda: prover._witness_quotient(
                               dqap.domain, dqap.input, ells, wm))
     n = dqap.n
-    m = max(n, crs.sum_delta_g1.z.shape[0], tail.shape[0])
+    sets = prover.prove_sets(crs)
+    blind = torch.from_numpy(prover._blinding_limbs(5, 6)).to(dev)
+    a_s, c_s, b_s = timed("blinded scalars (s u + r v)",
+                          lambda: prover._blinded_scalars(u, v, blind))
+    m = sets.xi_g1.z.shape[0]
     wb = msm.pick_window_bits(n)
-    jobs = [("msm G1 A (u)", crs.xi_g1, u), ("msm G1 B (v)", crs.xi_g1, v),
-            ("msm G1 H (h)", crs.xi_t_g1, h[:n - 1]),
-            ("msm G1 C (witness)", crs.sum_delta_g1, tail)]
+    jobs = [("msm G1 A (u | 1, 0, r)", sets.xi_g1, a_s),
+            ("msm G1 C' (s u + r v | s, r, rs)", sets.xi_g1, c_s),
+            ("msm G1 H (h)", sets.xi_t_g1, h[:n - 1]),
+            ("msm G1 C (witness)", sets.sum_delta_g1, tail)]
     for label, pts, sc in jobs:
-        pp, ss = prover._pad_msm(FQ_OPS, pts, sc, m)
-        timed(label, lambda: msm.msm_windowed(FQ_OPS, pp, ss, wb, True))
-    timed("msm G2 B (v)", lambda: msm.msm_windowed(FQ2_OPS, crs.xi_g2, v,
-                                                    wb, True))
+        ss = torch.cat([sc, sc.new_zeros((m - sc.shape[0], sc.shape[1]))])
+        timed(label, lambda: msm.msm_windowed(FQ_OPS, pts, ss, wb, True))
+    timed("msm G2 B (v | 1, s)", lambda: msm.msm_windowed(
+        FQ2_OPS, sets.xi_g2, b_s, wb, True))
 
     wall_ms, busy_ms, rows, _ = profiled(
         lambda: prover.device_setup(dqap, trapdoor=(11, 22, 33, 44, 55)))

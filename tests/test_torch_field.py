@@ -85,6 +85,31 @@ def test_montmul_plain_matches_jax(field):
         [x * y % p for x, y in zip(xs, ys)]
 
 
+@pytest.mark.parametrize("xy", ["edges", "seeded"])
+def test_mont_mul_add_plain_matches_jax(xy):
+    """`mont_mul_add` on CPU tensors (the plain version of
+    `zk_montmul_add`): a x + b y times R^-1 over Fr, equal to the JAX limb
+    path's two products and add and to host ints; no launch counted; a
+    wrong shape is refused."""
+    ctx, jctx = CTXS["Fr"]
+    p = ctx.p
+    xs, ys = _values(p, 23)
+    x, y = (p - 1, (p - 1) // 2) if xy == "edges" else _rand(29, p, 2)
+    pair = torch.from_numpy(ctx.to_limbs_np([x, y]))
+    before = dict(mm.LAUNCHES)
+    got = _as_jax(mm.mont_mul_add(_port(ctx, xs), _port(ctx, ys), pair))
+    assert mm.LAUNCHES == before
+    ja, jb = jnp.asarray(jctx.to_mont_np(xs)), jnp.asarray(jctx.to_mont_np(ys))
+    jx, jy = (jnp.asarray(jctx.to_limbs_np([v])) for v in (x, y))
+    want = jlimb.add(jctx, jlimb.mont_mul(jctx, ja, jx),
+                     jlimb.mont_mul(jctx, jb, jy))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert list(ctx.from_mont_np(limb.limbs_from_jax_np(got))) == \
+        [(a * x + b * y) * pow(1 << 256, -1, p) % p for a, b in zip(xs, ys)]
+    with pytest.raises(ValueError):
+        mm.mont_mul_add(_port(ctx, xs), _port(ctx, ys)[1:], pair)
+
+
 @pytest.mark.parametrize("field", ["Fr", "Fq"])
 def test_add_sub_neg_match_jax(field):
     ctx, jctx = CTXS[field]

@@ -5,7 +5,8 @@ The device pipeline (`prover._prove_core`: the quotient and the five
 MSMs, ~10 s a prove in the CPU's plain versions) is stood in for by
 fixed points, and the CRS by small multiples of the generators, so that
 these tests stay small; the spans, the witness's codec and upload, its
-Montgomery form and the host assembly run as they are.  The benchmark's
+Montgomery form, the CRS's prove sets and the host assembly run as they
+are.  The benchmark's
 tests prove through the whole pipeline with the recorder on
 (`benchmark/tests/test_benchmark_spans.py`).
 """
@@ -32,21 +33,35 @@ def _point(ops, pt):
         ops, [pt], "cpu")))
 
 
+def _small_crs(dq):
+    """A CRS of small multiples of the generators, shaped as
+    `device_setup`'s for `dq`."""
+    g1 = [hc.g1_scalar_mul(hc.G1_GEN_PT, k) for k in range(2, 2 + dq.n)]
+    g2 = [hc.g2_scalar_mul(hc.G2_GEN, k) for k in range(3, 3 + dq.n)]
+    n_delta = dq.num_wires - dq.input - 1
+
+    def pts(ops, host):
+        return prover._host_points_to_jac(ops, host, "cpu")
+
+    return prover.DeviceCRS(
+        xi_g1=pts(FQ_OPS, g1), xi_t_g1=pts(FQ_OPS, g1[1:]),
+        sum_delta_g1=pts(FQ_OPS, (g1 * 2)[:n_delta]),
+        xi_g2=pts(FQ2_OPS, g2),
+        sigmag1=SigmaG1(alpha=g1[0], beta=g1[1], delta=g1[2], xi=None,
+                        sum_gamma=[], sum_delta=None, xi_t=None),
+        sigmag2=SigmaG2(beta=g2[0], gamma=g2[1], delta=g2[2], xi=None))
+
+
 @pytest.fixture(scope="module")
 def circuit():
     r1cs, wit = synthetic_square_chain(7)
     dq = prover.compile_r1cs(r1cs, device="cpu")
-    g1 = [hc.g1_scalar_mul(hc.G1_GEN_PT, k) for k in (2, 3, 5, 7, 11, 13)]
-    g2 = [hc.g2_scalar_mul(hc.G2_GEN, k) for k in (3, 4, 5, 17)]
-    crs = prover.DeviceCRS(
-        xi_g1=None, xi_t_g1=None, sum_delta_g1=None, xi_g2=None,
-        sigmag1=SigmaG1(alpha=g1[0], beta=g1[1], delta=g1[2], xi=None,
-                        sum_gamma=[], sum_delta=None, xi_t=None),
-        sigmag2=SigmaG2(beta=g2[0], gamma=g2[1], delta=g2[2], xi=None))
-    core = (_point(FQ_OPS, g1[3]), _point(FQ_OPS, g1[4]),
-            _point(FQ2_OPS, g2[3]), _point(FQ_OPS, g1[5]),
+    g1 = [hc.g1_scalar_mul(hc.G1_GEN_PT, k) for k in (2, 7, 11, 13)]
+    g2 = hc.g2_scalar_mul(hc.G2_GEN, 17)
+    core = (_point(FQ_OPS, g1[1]), _point(FQ_OPS, g1[2]),
+            _point(FQ2_OPS, g2), _point(FQ_OPS, g1[3]),
             _point(FQ_OPS, g1[0]))
-    return dq, crs, wit, core
+    return dq, _small_crs(dq), wit, core
 
 
 @pytest.fixture
@@ -56,11 +71,16 @@ def prove(circuit, monkeypatch):
     dq, crs, wit, core = circuit
     hold = []
 
-    def fake_core(domain, n_input, window_bits, ells, crs_arrays,
-                  weights_mont, marks=None):
+    def fake_core(domain, n_input, window_bits, ells, sets, weights_mont,
+                  blind, marks=None):
         assert marks is None            # no marks on the CPU
+        assert sets is crs.sets
         for h in hold:
             h()
+        # the blinding reaches the proof through the MSMs: here, an odd r
+        # negates A
+        if int(blind[2, 0]) & 1:
+            return (prover.jac.neg(FQ_OPS, core[0]),) + core[1:]
         return core
 
     monkeypatch.setattr(prover, "_prove_core", fake_core)
@@ -262,3 +282,67 @@ def test_launch_registry():
         assert profiling.launch_counts()["ntt_fr"] == total["ntt_fr"] + 3
     finally:
         ntt.LAUNCHES.update(saved)
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_assemble_counts_host_scalar_muls(prove, monkeypatch, planted):
+    """`prove.assemble` carries the host scalar multiplications it ran:
+    none, with a full-width blinding; one planted in each of its five
+    affine conversions reads 5."""
+    if planted:
+        to_affine = prover.jac.to_affine_np
+
+        def with_mul(ops, p):
+            hc.g1_scalar_mul(hc.G1_GEN_PT, 3)
+            return to_affine(ops, p)
+
+        monkeypatch.setattr(prover.jac, "to_affine_np", with_mul)
+    with profiling.tracing():
+        prove(blinding=(2 ** 253 + 19, 3 ** 159))
+    (asm,) = [s for s in profiling.spans() if s.name == "prove.assemble"]
+    assert asm.attrs == {"host_scalar_muls": 5 if planted else 0}
+
+
+FIELDS = ("xi_g1", "xi_t_g1", "sum_delta_g1", "xi_g2")
+
+
+def test_prove_sets_keep_the_crs_fields(circuit, tmp_path):
+    """The prove sets are built once; the CRS's four point sets keep their
+    shapes, dtypes and values as views of the sets' first rows, and the
+    `.npz` checkpoint round trip holds."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.utils import serialization as ser
+
+    dq = circuit[0]
+    crs = _small_crs(dq)
+    before = {f: [a.clone() for a in getattr(crs, f)] for f in FIELDS}
+    sets = prover.prove_sets(crs)
+    assert prover.prove_sets(crs) is sets and crs.sets is sets
+    n, n_delta = dq.n, dq.num_wires - dq.input - 1
+    m = max(n + 3, n_delta)
+    for f in FIELDS:
+        for a, b, full in zip(getattr(crs, f), before[f], getattr(sets, f)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b)
+            assert a.data_ptr() == full.data_ptr()
+            assert full.shape[0] == (n + 2 if f == "xi_g2" else m)
+
+    def rows(p, lo, hi):
+        return prover.JPoint(*(a[lo:hi] for a in p))
+
+    sg1, sg2 = crs.sigmag1, crs.sigmag2
+    assert list(jac.to_affine_np(FQ_OPS, rows(sets.xi_g1, n, n + 3))) == [
+        sg1.alpha, sg1.beta, sg1.delta]
+    assert list(jac.to_affine_np(FQ2_OPS, rows(sets.xi_g2, n, n + 2))) == [
+        sg2.beta, sg2.delta]
+    for f, k in (("xi_g1", n + 3), ("xi_t_g1", n - 1),
+                 ("sum_delta_g1", n_delta)):
+        pad = rows(getattr(sets, f), k, m)
+        assert list(jac.to_affine_np(FQ_OPS, pad)) == [None] * (m - k)
+    path = str(tmp_path / "crs.npz")
+    ser.device_crs_save(path, crs)
+    again = ser.device_crs_load(path, device="cpu")
+    assert again.sets is None
+    for f in FIELDS:
+        for a, b in zip(getattr(again, f), getattr(crs, f)):
+            assert a.shape == b.shape and torch.equal(a, b)

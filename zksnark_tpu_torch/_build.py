@@ -42,7 +42,8 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 SIGNATURES = {
-    "montmul.cu": {"zk_montmul": [_P, _P, _P, _LL, _I, _P]},
+    "montmul.cu": {"zk_montmul": [_P, _P, _P, _LL, _I, _P],
+                   "zk_montmul_add": [_P, _P, _P, _P, _LL, _P]},
     "point_ops.cu": {
         "zk_point_madd": [_I] + [_P] * 9 + [_LL, _P],
         "zk_point_add": [_I] + [_P] * 9 + [_LL, _P],

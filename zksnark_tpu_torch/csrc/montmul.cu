@@ -16,6 +16,9 @@
 // element, 16-byte vector loads); fusing the multiplies into their
 // consumers is later work.
 //
+// zk_montmul_add fuses two Fr products with broadcast operands and their
+// sum (out = a x + b y), for the prover's blinded scalars.
+//
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch; launches on the caller's stream and never synchronises.
 
@@ -39,7 +42,42 @@ __global__ void __launch_bounds__(256)
   bn254::store_elem(out, i, r);
 }
 
+// out[i] = (a[i] x + b[i] y) 2^-256 mod r, x = xy[0] and y = xy[1], over
+// Fr: two products with broadcast operands and their sum in one pass (the
+// prover's blinded scalars s u + r v).  Each element reads 64 B and
+// writes 32 B, as one product does.
+__global__ void __launch_bounds__(256)
+    montmul_add_kernel(const uint32_t* __restrict__ a,
+                       const uint32_t* __restrict__ b,
+                       const uint32_t* __restrict__ xy,
+                       uint32_t* __restrict__ out, long long n) {
+  using F = bn254::FrField;
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bn254::Fe x = bn254::load_elem<bn254::Fe>(xy, 0);
+  bn254::Fe y = bn254::load_elem<bn254::Fe>(xy, 1);
+  bn254::Fe u = bn254::load_elem<bn254::Fe>(a, i);
+  bn254::Fe v = bn254::load_elem<bn254::Fe>(b, i);
+  bn254::Fe r;
+  bn254::mont_mul<F>(u.v, u.v, x.v);
+  bn254::mont_mul<F>(v.v, v.v, y.v);
+  bn254::add_mod<F>(r.v, u.v, v.v);
+  bn254::store_elem(out, i, r);
+}
+
 }  // namespace
+
+extern "C" int zk_montmul_add(const void* a, const void* b, const void* xy,
+                              void* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  montmul_add_kernel<<<blocks, threads, 0,
+                       reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<const uint32_t*>(xy), static_cast<uint32_t*>(out), n);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int zk_montmul(const void* a, const void* b, void* out,
                           long long n, int field, void* stream) {

@@ -243,7 +243,15 @@ def g1_double(p: G1Point) -> G1Point:
     return g1_add(p, p)
 
 
+# scalar multiplications run in this process (`g1_scalar_mul`,
+# `g2_scalar_mul`); the device prover reports those of its assembly on its
+# `prove.assemble` span (a count over every thread: other threads' work
+# can only add to it)
+SCALAR_MULS = {"g1": 0, "g2": 0}
+
+
 def g1_scalar_mul(p: G1Point, k: int) -> G1Point:
+    SCALAR_MULS["g1"] += 1
     k %= R
     acc: G1Point = None
     add = p
@@ -303,6 +311,7 @@ def g2_double(p: G2Point) -> G2Point:
 
 
 def g2_scalar_mul(p: G2Point, k: int) -> G2Point:
+    SCALAR_MULS["g2"] += 1
     k %= R
     acc: G2Point = None
     add = p

@@ -9,12 +9,23 @@ unused slots hold all-zero constraint rows.
           encryptions (one comb launch: a mixed add per 8-bit digit) ->
           batch_normalize (prefix products on the scan kernel)
   prove   witness x R^2 -> ELL gather-multiply-sum -> iNTTs -> coset-NTT
-          quotient -> five Pippenger MSMs (four G1, one G2) -> host
-          assembly of A, B, C
+          quotient -> five Pippenger MSMs (four G1, one G2), the
+          blinding (r, s) folded into them -> host assembly of A, B, C
+          (affine points and two adds)
 
 Every field product runs on the montmul kernel K1, every point operation
 on K2-K4.  Randomness (when not pinned), the proof assembly and the
 pairings stay on the host.
+
+The blinding folds into the MSMs by expanding the Groth16 proof,
+    A  = alpha + sum_j u_j xi_j + r delta
+    B2 = beta  + sum_j v_j xi_j + s delta                   (in G2)
+    C  = h + c_delta + s A + r (beta + sum_j v_j xi_j + s delta) - rs delta
+       = h + c_delta + sum_j (s u_j + r v_j) xi_j + s alpha + r beta
+         + rs delta,
+so A, B2 and C - h - c_delta are each one MSM over the xi points with
+alpha, beta, delta (G1) or beta, delta (G2) appended (`ProveSets`), the
+appended scalars (1, 0, r), (s, r, rs) and (1, s) made per prove.
 
 Entry points put their tensors on the first CUDA card unless the caller
 passes `device="cpu"` to `compile_r1cs`; setup and prove run where the
@@ -33,7 +44,8 @@ from __future__ import annotations
 
 import contextlib
 import random as _random
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,7 +63,7 @@ from ..ops import curve_kernels as ck
 from ..ops import msm as msmod
 from ..ops import ntt as nttmod
 from ..ops import scans
-from ..ops.montmul import from_mont, mont_mul
+from ..ops.montmul import from_mont, mont_mul, mont_mul_add
 from ..utils import profiling
 from .protocol import Proof, SigmaG1, SigmaG2
 
@@ -141,9 +153,25 @@ def domain_roots(domain: nttmod.Domain) -> List[int]:
 # ---------------------------------------------------------------------------
 
 @dataclass
+class ProveSets:
+    """The point sets of a prove's MSMs, built once per CRS
+    (`prove_sets`): xi_g1 followed by alpha, beta, delta, xi_t_g1 and
+    sum_delta_g1, each padded with infinity to the four G1 MSMs' common
+    size max(n + 3, len(sum_delta_g1)); xi_g2 followed by beta, delta.
+    Every Z is 0 or the Montgomery one, as in the CRS."""
+
+    xi_g1: JPoint
+    xi_t_g1: JPoint
+    sum_delta_g1: JPoint
+    xi_g2: JPoint
+
+
+@dataclass
 class DeviceCRS:
     """Device-resident CRS point sets (every Z is 0 or the Montgomery one)
-    plus the small host Sigma parts that verify consumes."""
+    plus the small host Sigma parts that verify consumes.  Once
+    `prove_sets` has run, the four point sets are views of the first rows
+    of its sets (the same shapes and values)."""
 
     xi_g1: JPoint          # n points  E1(x^i)
     xi_t_g1: JPoint        # n-1 points E1(x^i t(x)/delta)
@@ -151,6 +179,10 @@ class DeviceCRS:
     xi_g2: JPoint          # n points  E2(x^i)
     sigmag1: SigmaG1       # host (alpha/beta/delta + sum_gamma; xi=None)
     sigmag2: SigmaG2       # host (beta/gamma/delta; xi=None)
+    sets: Optional[ProveSets] = field(default=None, repr=False,
+                                      compare=False)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
 
 
 def _host_points_to_jac(ops, pts, device) -> JPoint:
@@ -359,13 +391,51 @@ def device_setup(
     def encrypt(ops, base, scalars):
         return _fixed_base_encrypt(ops, base, scalars, mesh, timer)
 
-    return DeviceCRS(
+    crs = DeviceCRS(
         xi_g1=encrypt(FQ_OPS, g1_base, xi_std),
         xi_t_g1=encrypt(FQ_OPS, g1_base, xi_t_std),
         sum_delta_g1=encrypt(FQ_OPS, g1_base,
                              sum_delta_std[dqap.input + 1:]),
         xi_g2=encrypt(FQ2_OPS, g2_base, xi_std),
         sigmag1=sigmag1, sigmag2=sigmag2)
+    prove_sets(crs)
+    return crs
+
+
+def _stack(ops, parts: Sequence[JPoint], size: int) -> JPoint:
+    """The point batches `parts` one after another, padded with infinity
+    to `size` points, in one copy."""
+    have = sum(p.z.shape[0] for p in parts)
+    pad = jac.infinity(ops, (size - have,), parts[0].z.device)
+    return JPoint(*(torch.cat(c) for c in zip(*parts, pad)))
+
+
+def prove_sets(crs: DeviceCRS) -> ProveSets:
+    """The CRS's `ProveSets`, built at the first call (`device_setup` makes
+    that call; a CRS loaded or carried from elsewhere makes it at its first
+    prove) and kept on `crs`, whose four point sets then become views of
+    their first rows: each set is stored once, and no prove copies one."""
+    with crs._lock:
+        if crs.sets is None:
+            dev = crs.xi_g1.z.device
+            n = crs.xi_g1.z.shape[0]
+            sg1, sg2 = crs.sigmag1, crs.sigmag2
+            g1_fixed = _host_points_to_jac(
+                FQ_OPS, [sg1.alpha, sg1.beta, sg1.delta], dev)
+            g2_fixed = _host_points_to_jac(FQ2_OPS, [sg2.beta, sg2.delta],
+                                           dev)
+            m = max(n + 3, crs.sum_delta_g1.z.shape[0])
+            sets = ProveSets(
+                xi_g1=_stack(FQ_OPS, [crs.xi_g1, g1_fixed], m),
+                xi_t_g1=_stack(FQ_OPS, [crs.xi_t_g1], m),
+                sum_delta_g1=_stack(FQ_OPS, [crs.sum_delta_g1], m),
+                xi_g2=_stack(FQ2_OPS, [crs.xi_g2, g2_fixed], n + 2))
+            for name in ("xi_g1", "xi_t_g1", "sum_delta_g1", "xi_g2"):
+                k = getattr(crs, name).z.shape[0]
+                setattr(crs, name, JPoint(*(a[:k] for a in
+                                            getattr(sets, name))))
+            crs.sets = sets
+        return crs.sets
 
 
 # ---------------------------------------------------------------------------
@@ -394,44 +464,57 @@ def _witness_quotient(domain, n_input: int, ells, weights_mont):
             from_mont(FR_CTX, weights_mont[n_input + 1:]))
 
 
-def _pad_msm(ops, pts: JPoint, scalars: torch.Tensor, n: int):
-    """Pad an MSM instance to exactly n terms (infinity points, zero
-    scalars); points and scalars are padded independently."""
-    if pts.z.shape[0] < n:
-        inf = jac.infinity(ops, (n - pts.z.shape[0],), pts.z.device)
-        pts = JPoint(*(torch.cat([a, b]) for a, b in zip(pts, inf)))
-    if scalars.shape[0] < n:
-        scalars = torch.cat([scalars,
-                             scalars.new_zeros((n - scalars.shape[0], L))])
-    return pts, scalars
+def _blinding_limbs(r: int, s: int) -> np.ndarray:
+    """(10, 8) int32 limbs: the scalars appended to the MSMs of A (1, 0,
+    r), of C - h - c_delta (s, r, rs) and of B2 (1, s) in standard form,
+    then s and r in Montgomery form."""
+    f = FR_CTX.p
+    return np.concatenate([
+        FR_CTX.to_limbs_np([1, 0, r, s, r, r * s % f, 1, s]),
+        FR_CTX.to_mont_np([s, r])])
 
 
-def _prove_core(domain, n_input: int, window_bits: int, ells, crs_arrays,
-                weights_mont, marks=None):
-    """Quotient, then the four G1 MSMs (padded to one common size, as in
-    the JAX package; their Horner tails in one launch) and the G2 MSM.
-    marks: `utils.profiling.StreamMarks` that get a mark after the
-    quotient and one after the G2 MSM."""
-    xi_g1, xi_t_g1, sum_delta_g1, xi_g2 = crs_arrays
+def _blinded_scalars(u_std, v_std, blind):
+    """The folded MSMs' per-term scalars, standard form, each as the parts
+    to concatenate: (u | 1, 0, r), (s u + r v | s, r, rs), (v | 1, s).
+    s u + r v is one launch (`mont_mul_add`: standard x Montgomery =
+    standard)."""
+    suv = mont_mul_add(u_std, v_std, blind[8:10])
+    return (u_std, blind[0:3]), (suv, blind[3:6]), (v_std, blind[6:8])
+
+
+def _prove_core(domain, n_input: int, window_bits: int, ells,
+                sets: ProveSets, weights_mont, blind, marks=None):
+    """Quotient, then the four G1 MSMs over `sets` (padded to one common
+    size; their Horner tails in one launch) and the G2 MSM, the blinding
+    folded in (`_blinding_limbs` on the device as `blind`).  Returns the
+    Jacobian (A, C - h - c_delta, B2, h, c_delta).  marks:
+    `utils.profiling.StreamMarks` that get a mark after the quotient and
+    one after the G2 MSM."""
     n = domain.n
     u_std, v_std, h_std, wit_std = _witness_quotient(
         domain, n_input, ells, weights_mont)
     if marks is not None:
         marks.mark()
-    wb = window_bits
-    m = max(n, sum_delta_g1.z.shape[0], wit_std.shape[0])
-    xi_p, u_p = _pad_msm(FQ_OPS, xi_g1, u_std, m)
-    _, v_p = _pad_msm(FQ_OPS, xi_g1, v_std, m)
-    hp, hs = _pad_msm(FQ_OPS, xi_t_g1, h_std[:n - 1], m)
-    dp, ds = _pad_msm(FQ_OPS, sum_delta_g1, wit_std, m)
-    # affine=True: DeviceCRS point sets have Z in {0, one}; the four G1
-    # MSMs share one Horner launch
-    a_g1, b_g1, h_xt, c_delta = msmod.msm_windowed_batch(
-        FQ_OPS, [(xi_p, u_p), (xi_p, v_p), (hp, hs), (dp, ds)], wb, True)
-    b_g2 = msmod.msm_windowed(FQ2_OPS, xi_g2, v_std, wb, True)
+    m = sets.xi_g1.z.shape[0]
+    a_s, c_s, b_s = _blinded_scalars(u_std, v_std, blind)
+
+    def pad(*parts):
+        """The parts one after another, zeros to m rows: one copy."""
+        k = m - sum(p.shape[0] for p in parts)
+        return torch.cat([*parts, parts[0].new_zeros((k, L))])
+
+    # affine=True: the sets' Z are in {0, one}; the four G1 MSMs share
+    # one Horner launch
+    a_g1, c_g1, h_xt, c_delta = msmod.msm_windowed_batch(
+        FQ_OPS, [(sets.xi_g1, pad(*a_s)), (sets.xi_g1, pad(*c_s)),
+                 (sets.xi_t_g1, pad(h_std[:n - 1])),
+                 (sets.sum_delta_g1, pad(wit_std))], window_bits, True)
+    b_g2 = msmod.msm_windowed(FQ2_OPS, sets.xi_g2, torch.cat(b_s),
+                              window_bits, True)
     if marks is not None:
         marks.mark()
-    return a_g1, b_g1, b_g2, h_xt, c_delta
+    return a_g1, c_g1, b_g2, h_xt, c_delta
 
 
 @torch.inference_mode()
@@ -445,6 +528,10 @@ def device_prove(
 ) -> Proof:
     """Full prover: device pipeline + host final assembly.
 
+    The blinding (r, s), drawn fresh for each call unless pinned, runs on
+    the device inside the MSMs (the module's fold); the host only turns
+    the five MSM results into affine points and adds three of them.
+
     mesh: the device pipeline runs the distributed four-step quotient and
     point-sharded MSMs (`parallel.prove_sharded`); the domain must hold
     n >= mesh size^2 (the four-step split).  Every rank returns the same
@@ -455,7 +542,8 @@ def device_prove(
     blinding, the witness's limbs on the host), `prove.issue` (the
     upload, the Montgomery form and every launch), `prove.wait` (the host
     waiting for the card: one synchronize) and `prove.assemble` (the
-    affine points and the host's blinding arithmetic); on one CUDA card
+    affine points and two adds; its attribute `host_scalar_muls` counts
+    the host scalar multiplications run meanwhile); on one CUDA card
     also the device spans `quotient` (from before the Montgomery form to
     the quotient's end) and `msm` (to the G2 MSM's end) from marks on
     the stream."""
@@ -472,28 +560,29 @@ def device_prove(
             # standard-form limbs on the host (bytes codec), Montgomery
             # form on the device (one product with R^2)
             w_limbs = FR_CTX.to_limbs_np(w_full)
+            blind_limbs = _blinding_limbs(r, s)
 
         with profiling.span("prove.issue"):
             marks = profiling.stream_marks(dev) if mesh is None else None
             w_std = torch.from_numpy(w_limbs).to(dev)
+            blind = torch.from_numpy(blind_limbs).to(dev)
             if marks is not None:
                 marks.mark()
             weights_mont = mont_mul(FR_CTX, w_std, FR_CTX.const("r2", dev))
             ells = (dqap.u, dqap.v, dqap.w)
-            crs_arrays = (crs.xi_g1, crs.xi_t_g1, crs.sum_delta_g1,
-                          crs.xi_g2)
+            sets = prove_sets(crs)
             if mesh is None:
-                a_g1, b_g1, b_g2, h_xt, c_delta = _prove_core(
+                a_g1, c_g1, b_g2, h_xt, c_delta = _prove_core(
                     dqap.domain, dqap.input, msmod.pick_window_bits(dqap.n),
-                    ells, crs_arrays, weights_mont, marks)
+                    ells, sets, weights_mont, blind, marks)
             else:
                 from ..parallel import prove_sharded as psh
 
                 window_bits = msmod.pick_window_bits(
                     max(64, dqap.n // mesh.size))
-                a_g1, b_g1, b_g2, h_xt, c_delta = psh.sharded_prove_step(
+                a_g1, c_g1, b_g2, h_xt, c_delta = psh.sharded_prove_step(
                     mesh, dqap.domain, dqap.input, window_bits, ells,
-                    crs_arrays, weights_mont, num_wires=dqap.num_wires)
+                    sets, weights_mont, blind, num_wires=dqap.num_wires)
 
         with profiling.span("prove.wait"):
             if profiling.recording() and dev.type == "cuda":
@@ -501,24 +590,14 @@ def device_prove(
         if marks is not None:
             marks.close(("quotient", "msm"))
 
-        with profiling.span("prove.assemble"):
-            a_aff = jac.to_affine_np(FQ_OPS, a_g1)
-            b1_aff = jac.to_affine_np(FQ_OPS, b_g1)
-            b2_aff = jac.to_affine_np(FQ2_OPS, b_g2)
-            hxt_aff = jac.to_affine_np(FQ_OPS, h_xt)
-            cdelta_aff = jac.to_affine_np(FQ_OPS, c_delta)
-
-            sg1, sg2 = crs.sigmag1, crs.sigmag2
-            a = hc.g1_add(hc.g1_add(a_aff, sg1.alpha),
-                          hc.g1_scalar_mul(sg1.delta, r))
-            b = hc.g2_add(hc.g2_add(b2_aff, sg2.beta),
-                          hc.g2_scalar_mul(sg2.delta, s))
-
-            c = hc.g1_add(hxt_aff, cdelta_aff)
-            c = hc.g1_add(c, hc.g1_scalar_mul(a, s))
-            inner = hc.g1_add(hc.g1_add(sg1.beta, b1_aff),
-                              hc.g1_scalar_mul(sg1.delta, s))
-            c = hc.g1_add(c, hc.g1_scalar_mul(inner, r))
-            c = hc.g1_add(c, hc.g1_neg(hc.g1_scalar_mul(sg1.delta,
-                                                        r * s % f)))
+        with profiling.span("prove.assemble") as sp:
+            muls = sum(hc.SCALAR_MULS.values())
+            a = jac.to_affine_np(FQ_OPS, a_g1)
+            b = jac.to_affine_np(FQ2_OPS, b_g2)
+            c = hc.g1_add(hc.g1_add(jac.to_affine_np(FQ_OPS, c_g1),
+                                    jac.to_affine_np(FQ_OPS, h_xt)),
+                          jac.to_affine_np(FQ_OPS, c_delta))
+            if sp is not None:
+                sp.attrs["host_scalar_muls"] = (
+                    sum(hc.SCALAR_MULS.values()) - muls)
             return Proof(a=a, b=b, c=c)

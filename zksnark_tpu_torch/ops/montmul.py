@@ -1,5 +1,7 @@
 """K1: batched Montgomery multiplication — the CUDA kernel
-(`csrc/montmul.cu`), its plain PyTorch version, and the launch counts.
+(`csrc/montmul.cu`), its plain PyTorch version, and the launch counts;
+`mont_mul_add`, two Fr products with broadcast operands and their sum
+in one launch.
 
 Counterpart of `zksnark_tpu/ops/montmul.py` (`mont_mul_pallas`,
 `mont_mul_auto`, `from_mont_auto`).  `mont_mul` broadcasts its operands,
@@ -31,8 +33,7 @@ L = limb.L
 
 # launches of the kernels, by field (`profiling.launch_counts()`)
 LAUNCHES = profiling.launch_counter(__name__, (
-    "montmul_fr", "montmul_fq", "mont_scan_fq", "mont_scan_fq2",
-    "normalize_fq", "normalize_fq2"))
+    "montmul_fr", "montmul_fq", "montmul_add_fr", "mont_scan_fq", "mont_scan_fq2", "normalize_fq", "normalize_fq2"))
 
 
 def kernel_name(ctx: MontCtx) -> str:
@@ -79,6 +80,35 @@ def mont_mul(ctx: MontCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return mont_mul_plain(ctx, a, b)
     raise ValueError(f"mont_mul: unsupported device {a.device}")
+
+
+def mont_mul_add_plain(a: torch.Tensor, b: torch.Tensor,
+                       xy: torch.Tensor) -> torch.Tensor:
+    return limb.add(FR_CTX, mont_mul_plain(FR_CTX, a, xy[0:1]),
+                    mont_mul_plain(FR_CTX, b, xy[1:2]))
+
+
+def mont_mul_add(a: torch.Tensor, b: torch.Tensor,
+                 xy: torch.Tensor) -> torch.Tensor:
+    """(a * xy[0] + b * xy[1]) * R^-1 mod r over Fr, for (N, 8) a and b
+    and a (2, 8) xy: one launch of `zk_montmul_add` on CUDA tensors, the
+    plain version (two products and `field.limb.add`) on CPU tensors."""
+    if a.shape != b.shape or a.dim() != 2 or xy.shape != (2, L):
+        raise ValueError(f"mont_mul_add: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, xy {tuple(xy.shape)}")
+    if a.device.type == "cpu":
+        return mont_mul_add_plain(a, b, xy)
+    if a.device.type != "cuda":
+        raise ValueError(f"mont_mul_add: unsupported device {a.device}")
+    fa, fb, fxy = _flat(a), _flat(b), _flat(xy)
+    out = torch.empty_like(fa)
+    if out.shape[0]:
+        code = _build.lib("montmul.cu").zk_montmul_add(
+            fa.data_ptr(), fb.data_ptr(), fxy.data_ptr(), out.data_ptr(),
+            out.shape[0], torch.cuda.current_stream(a.device).cuda_stream)
+        _build.check(code, "montmul_add")
+        LAUNCHES["montmul_add_fr"] += 1
+    return out
 
 
 def from_mont(ctx: MontCtx, a: torch.Tensor) -> torch.Tensor:

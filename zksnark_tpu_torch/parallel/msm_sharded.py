@@ -59,14 +59,14 @@ def msm_sharded(ops, mesh: Mesh, pts_local: JPoint,
                 scalars_local: torch.Tensor, window_bits: int = 8,
                 use_pippenger: bool = True, affine: bool = False) -> JPoint:
     """sum_i s_i P_i over the whole mesh, given this rank's stripe of the
-    points and of the (N, 8) standard-form scalars; N is divisible by the
-    mesh size (pad with infinity upstream).  use_pippenger=False runs
-    the stripe as batched scalar multiplications and a tree sum (the
-    small-N oracle).  affine=True asserts the batch_normalize invariant
-    on the points (see ops.msm)."""
+    points and of the (N, 8) standard-form scalars (a stripe of any
+    length: it runs as it is, unpadded).  use_pippenger=False runs the
+    stripe as batched scalar multiplications and a tree sum (the small-N
+    oracle).  affine=True asserts the batch_normalize invariant on the
+    points (see ops.msm)."""
     if use_pippenger:
-        part = msmod.msm(ops, pts_local, scalars_local, window_bits,
-                         affine)
+        part = msmod.msm_windowed(ops, pts_local, scalars_local,
+                                  window_bits, affine)
     else:
         part = msmod.tree_sum(
             ops, msmod.batch_scalar_mul(ops, pts_local, scalars_local))

@@ -14,7 +14,11 @@ layout:
   through the single-device Pippenger, the one-point partials are
   all-gathered and folded.  The CRS points are taken in the same
   four-step coefficient order (`coeff_perm`) as the quotient's scalars,
-  once per prove here (at setup in a production deployment).
+  once per prove here (at setup in a production deployment).  The
+  blinding folds in as on one device (`groth16.prover`): every rank's
+  stripes of A, C - h - c_delta and B2 end in the appended points
+  (alpha, beta, delta; beta, delta), with the blinding's scalars on
+  rank 0 and zeros on the others.
 
 Every rank holds the whole circuit, witness and CRS going in, and the
 same five Jacobian partials coming out: `sharded_prove_step` returns
@@ -132,13 +136,13 @@ def sharded_witness_quotient(mesh: Mesh, domain: nttmod.Domain,
 
 
 def sharded_prove_step(mesh: Mesh, domain: nttmod.Domain, n_input: int,
-                       window_bits: int, ells, crs_arrays,
-                       weights_mont: torch.Tensor, num_wires: int = 0):
-    """The multi-process prove step: the (a_g1, b_g1, b_g2, h_xt,
-    c_delta) Jacobian partials, the same on every rank, ready for host
-    assembly.  crs_arrays: the whole (xi_g1, xi_t_g1, sum_delta_g1,
-    xi_g2) point sets of a `DeviceCRS`."""
-    xi_g1, xi_t_g1, sum_delta_g1, xi_g2 = crs_arrays
+                       window_bits: int, ells, sets,
+                       weights_mont: torch.Tensor, blind: torch.Tensor,
+                       num_wires: int = 0):
+    """The multi-process prove step: the Jacobian (A, C - h - c_delta, B2,
+    h, c_delta), the same on every rank, ready for host assembly.  sets:
+    the CRS's `groth16.prover.ProveSets`; blind: the blinding's limbs
+    (`groth16.prover._blinding_limbs`), the same on every rank."""
     n = domain.n
     sd = _sharded_domain(domain.log_n, mesh.size, domain.device)
     _, cp = _perms(sd, mesh.size)
@@ -148,26 +152,33 @@ def sharded_prove_step(mesh: Mesh, domain: nttmod.Domain, n_input: int,
 
     u_std, v_std, h_std, wit_std = sharded_witness_quotient(
         mesh, domain, n_input, num_wires, ells, weights_mont)
+    if mesh.rank:
+        blind = torch.cat([torch.zeros_like(blind[:8]), blind[8:]])
+    a_s, c_s, b_s = (torch.cat(parts) for parts in
+                     prover_mod._blinded_scalars(u_std, v_std, blind))
 
-    # this rank's CRS points, in the orders of its scalars
-    zeros = torch.zeros((n, L), dtype=u_std.dtype, device=u_std.device)
-    xi_t_pad, _ = prover_mod._pad_msm(FQ_OPS, xi_t_g1, zeros, n)
-    sum_delta_pad, _ = prover_mod._pad_msm(FQ_OPS, sum_delta_g1, zeros, n)
-    xi_g1_l = _take_pts(xi_g1, cp_l)
-    xi_t_l = _take_pts(xi_t_pad, cp_l)
-    sum_delta_l = JPoint(*(nsh.local_rows(mesh, a) for a in sum_delta_pad))
-    xi_g2_l = _take_pts(xi_g2, cp_l)
+    # this rank's points, in the orders of its scalars, then the appended
+    # points; the sets are padded with infinity past n - 1 (xi_t) and the
+    # witness tail (sum_delta) (`prove_sets`)
+    def appended(k):
+        return torch.cat([cp_l, torch.arange(n, n + k, device=cp_l.device)])
 
-    # affine=True: the CRS point sets hold the batch_normalize invariant
-    # (device_setup); taking and padding keep it
+    xi_g1_l = _take_pts(sets.xi_g1, appended(3))
+    xi_t_l = _take_pts(sets.xi_t_g1, cp_l)
+    sum_delta_l = JPoint(*(nsh.local_rows(mesh, a[:n])
+                           for a in sets.sum_delta_g1))
+    xi_g2_l = _take_pts(sets.xi_g2, appended(2))
+
+    # affine=True: the sets hold the batch_normalize invariant; taking
+    # keeps it
     def g1_msm(pts, scalars):
         return msm_sharded(FQ_OPS, mesh, pts, scalars, window_bits,
                            affine=True)
 
-    a_g1 = g1_msm(xi_g1_l, u_std)
-    b_g1 = g1_msm(xi_g1_l, v_std)
+    a_g1 = g1_msm(xi_g1_l, a_s)
+    c_g1 = g1_msm(xi_g1_l, c_s)
     h_xt = g1_msm(xi_t_l, h_std)
     c_delta = g1_msm(sum_delta_l, wit_std)
-    b_g2 = msm_sharded(FQ2_OPS, mesh, xi_g2_l, v_std, window_bits,
+    b_g2 = msm_sharded(FQ2_OPS, mesh, xi_g2_l, b_s, window_bits,
                        affine=True)
-    return a_g1, b_g1, b_g2, h_xt, c_delta
+    return a_g1, c_g1, b_g2, h_xt, c_delta
