@@ -172,6 +172,7 @@ OPS_PER_ADD = 16
 TPU_KERNELS = {
     "montmul": "zksnark_tpu/ops/montmul.py:42",
     "montmul_add": "zksnark_tpu/ops/montmul.py:42",
+    "wide_rows": "zksnark_tpu/ops/montmul.py:42",
     "ntt": "zksnark_tpu/ops/montmul.py:42",
     "madd": "zksnark_tpu/ops/curve_pallas.py:291",
     "bucket_scan": "zksnark_tpu/ops/curve_pallas.py:291",
@@ -189,6 +190,7 @@ TPU_KERNELS = {
 SOURCES = {
     "montmul": "zksnark_tpu_torch/csrc/montmul.cu",
     "montmul_add": "zksnark_tpu_torch/csrc/montmul.cu",
+    "wide_rows": "zksnark_tpu_torch/csrc/montmul.cu",
     "ntt": "zksnark_tpu_torch/csrc/ntt.cu",
     "madd": "zksnark_tpu_torch/csrc/point_ops.cu",
     "bucket_scan": "zksnark_tpu_torch/csrc/point_scan.cu",
@@ -208,9 +210,11 @@ SOURCES = {
 # abel, its mixed adds in the bucket scan, its tail's adds in add_gather
 # and abel, setup's mixed adds in the comb, batch_normalize's products
 # in mont_scan and normalize; the batched NTT runs on the mesh path only,
-# where every transform is batched
+# where every transform is batched; the wide rows' kernel only where a
+# circuit has rows wider than its ELL (none of the circuits here)
 ELEMENTWISE = ("double_g1", "double_g2", "madd_g1", "madd_g2", "add_g1",
-               "add_g2", "double_n_g1", "double_n_g2", "montmul_fq")
+               "add_g2", "double_n_g1", "double_n_g2", "montmul_fq",
+               "wide_rows_fr")
 OFF_PATH = ELEMENTWISE + ("ntt_fr_batched",)
 MESH_OFF_PATH = ELEMENTWISE + ("ntt_fr",)
 MESH_ONLY = ("ntt_fr_batched",)
@@ -3246,6 +3250,122 @@ def profile_phase(dqap, crs, wit, table_path: str) -> None:
             sort_by="self_device_time_total", row_limit=60))
 
 
+# the wide rows of `sprout_path-d29`'s layout (u, v, w): {row width: rows},
+# the rows that `groth16.prover.narrow_width` leaves out of each ELL
+# (k0 = 2, 2, 1) at n = 2^20; 1,380,540 non-zeros in all
+WIDE_SHAPES = {
+    "u": {3: 1189, 4: 57971},
+    "v": {3: 1712, 4: 203, 5: 57072, 32: 15776, 33: 232, 34: 1392,
+          35: 3712, 253: 1},
+    "w": {2: 67048, 4: 1392, 6: 1856, 7: 1856},
+}
+WIDE_N = 1 << 20
+
+
+def np_limbs(gen, n: int) -> torch.Tensor:
+    """n random Fr limbs below p from a numpy generator (the top limb's
+    high bits cleared)."""
+    a = gen.integers(0, 1 << 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    a[:, 7] &= 0x0FFFFFFF
+    return torch.from_numpy(a.view(np.int32))
+
+
+def wide_csr(gen, dev, widths: dict, n: int, n_wires: int):
+    """A random CSR matrix with the rows `widths` ({width: rows}) in a
+    domain of n rows, laid out as `compile_r1cs` lays out wide rows
+    (longest first): (idx, val, ptr, rows, group)."""
+    from zksnark_tpu_torch.groth16 import prover
+
+    lens = np.array(sorted((k for k, c in widths.items() for _ in range(c)),
+                           reverse=True), dtype=np.int64)
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    rows = np.sort(gen.choice(n, lens.shape[0], replace=False))
+    gen.shuffle(rows)
+    nnz = int(ptr[-1])
+    return (torch.from_numpy(gen.integers(0, n_wires, nnz).astype(
+                np.int32)).to(dev),
+            np_limbs(gen, nnz).to(dev),
+            torch.from_numpy(ptr).to(dev),
+            torch.from_numpy(rows).to(dev),
+            prover._wide_group(int(lens[0])))
+
+
+def wide_phase(dev, seed: int, results: dict) -> None:
+    """The wide rows' kernel (`ops.montmul.wide_rows`) against its plain
+    version, bit for bit: edge rows (zero, one and p - 1 values and
+    witness elements, one-term rows, a row of 300 terms, a repeated wire)
+    at every group size, then each matrix of `sprout_path-d29`'s wide rows
+    (`WIDE_SHAPES`) at n = 2^20 over random values, timed with CUDA
+    events beside the plain version and the bound (4 B index + 32 B value
+    + 32 B witness element a term, 32 B a row; one product and one add a
+    term)."""
+    from zksnark_tpu_torch.field.limb import FR_CTX
+    from zksnark_tpu_torch.ops import montmul
+
+    gen = np.random.default_rng(seed + 15)
+    p = FR_CTX.p
+    edge = [0, 1, p - 1, FR_CTX.r_int % p, 2]
+    w = torch.from_numpy(FR_CTX.to_limbs_np(edge * 40)).to(dev)
+    lens = np.array([1, 1, 300, 2, 5, 33, 1], dtype=np.int64)
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    nnz = int(ptr[-1])
+    idx = torch.from_numpy(gen.integers(0, w.shape[0], nnz).astype(
+        np.int32)).to(dev)
+    idx[3:10] = 7                                # one wire repeated
+    val = torch.from_numpy(FR_CTX.to_limbs_np(
+        [edge[i % 5] for i in range(nnz)])).to(dev)
+    rows = torch.tensor([5, 0, 17, 9, 3, 30, 31], device=dev)
+    ptr_t = torch.from_numpy(ptr).to(dev)
+    out0 = torch.from_numpy(FR_CTX.to_limbs_np([3] * 32)).to(dev)
+    want = montmul.wide_rows_plain(w, idx, val, ptr_t, rows, out0.clone())
+    edge_err = max(
+        limb_err(montmul.wide_rows(w, idx, val, ptr_t, rows, out0.clone(), g),
+                 want)
+        for g in (1, 2, 4, 8, 16, 32))
+    # the host: row 2 (300 terms) as ints
+    w_int = FR_CTX.from_limbs_np(w.cpu().numpy())
+    v_int = FR_CTX.from_limbs_np(val.cpu().numpy())
+    r_inv = pow(2, -256, p)
+    host = sum(int(v_int[j]) * int(w_int[int(idx[j])]) * r_inv
+               for j in range(ptr[2], ptr[3])) % p
+    host_ok = int(FR_CTX.from_limbs_np(want[17].cpu().numpy())) == host
+    log(f"[wide] edge rows at g = 1 .. 32: err against the plain version "
+        f"{edge_err}, the 300-term row equal to host ints {host_ok}")
+
+    per_shape = {}
+    err = 0
+    for name, widths in WIDE_SHAPES.items():
+        idx, val, ptr_t, rows, g = wide_csr(gen, dev, widths, WIDE_N, WIDE_N)
+        wv = np_limbs(gen, WIDE_N).to(dev)
+        out = torch.zeros((WIDE_N, 8), dtype=torch.int32, device=dev)
+        ms, got = time_cuda(lambda: montmul.wide_rows(
+            wv, idx, val, ptr_t, rows, out, g), 20)
+        got = got.clone()
+        plain_ms, ref = time_once(lambda: montmul.wide_rows_plain(
+            wv, idx, val, ptr_t, rows, torch.zeros_like(out)))
+        err = max(err, limb_err(got, ref))
+        nz, nr = idx.shape[0], rows.shape[0]
+        bnd = bound(nz * (4 + 64) + nr * 32, nz * (IMAD_PER_MUL + 16))
+        per_shape[name] = {"rows": nr, "nnz": nz, "group": g, "ms": ms,
+                           "plain_ms": plain_ms, **bnd}
+        log(f"[wide] {name}: {nr} rows, {nz} non-zeros, g = {g}: "
+            f"{ms:.4f} ms (bound {bnd['bound_ms']:.4f} ms by "
+            f"{bnd['bound_by']}, {100 * bnd['bound_ms'] / ms:.1f} %), "
+            f"plain {plain_ms:.2f} ms, err {limb_err(got, ref)}")
+    total = {k: sum(v[k] for v in per_shape.values())
+             for k in ("ms", "plain_ms", "bound_ms", "nnz", "rows")}
+    log(f"[wide] a prove's three launches: {total['ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms, plain {total['plain_ms']:.2f} ms")
+    results["wide_rows_fr"] = {
+        "bit_exact": edge_err == 0, "host_edge_ok": host_ok,
+        "max_abs_err": edge_err, "path_shape_err": err,
+        "checked_shapes": list(WIDE_SHAPES), "ms": total["ms"],
+        "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+        "bound_by": "/".join(sorted({v["bound_by"]
+                                     for v in per_shape.values()})),
+        "shape": "sprout_path-d29 wide rows", "per_shape": per_shape}
+
+
 def main(argv=None) -> int:
     log_n, n_proves = 20, 3
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3280,7 +3400,9 @@ def main(argv=None) -> int:
         if bad:
             raise SystemExit(f"kernels disagree: {bad}")
         time_phase(dev, SEED, results)
-        bad = [k for k, r in results.items() if r["path_shape_err"] != 0]
+        wide_phase(dev, SEED, results)
+        bad = [k for k, r in results.items() if r["path_shape_err"] != 0
+               or not (r["bit_exact"] and r["host_edge_ok"])]
         if bad:
             raise SystemExit(f"kernels disagree at the path's shapes: {bad}")
     reference_phase(dev)

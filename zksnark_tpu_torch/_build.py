@@ -43,7 +43,8 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 SIGNATURES = {
     "montmul.cu": {"zk_montmul": [_P, _P, _P, _LL, _I, _P],
-                   "zk_montmul_add": [_P, _P, _P, _P, _LL, _P]},
+                   "zk_montmul_add": [_P, _P, _P, _P, _LL, _P],
+                   "zk_wide_rows": [_P] * 6 + [_LL, _I, _P]},
     "point_ops.cu": {
         "zk_point_madd": [_I] + [_P] * 9 + [_LL, _P],
         "zk_point_add": [_I] + [_P] * 9 + [_LL, _P],

@@ -1,4 +1,5 @@
-"""Imperative circuit builder: gates, words, comparators, Keccak-256.
+"""Imperative circuit builder: gates, words, comparators, Keccak-256,
+and general R1CS constraints with hint wires.
 
 The port's own copy of `zksnark_tpu/builder/circuit.py`.  A circuit is a
 set of *sub-circuits*, each multiplying two weighted linear combinations of
@@ -6,11 +7,25 @@ wires, plus memoized evaluation, a boolean-gate library and word-level
 gadgets.  Evaluation is iterative (an explicit stack), so deep circuits
 (Keccak-256: ~232k sub-circuits) hit no recursion limit; wire ids are
 dense ints and every iteration order is deterministic.
+
+Beyond the product gates (`new_sub_circuit`: its output is a new wire),
+the builder makes general R1CS as libsnark and circom emit it:
+
+- `new_constraint(a, b, c)`: (sum a) * (sum b) = (sum c) with C a given
+  linear combination, possibly empty; it makes no wire.
+- hint wires (`new_hint`, `new_hints`): wires whose values a function of
+  other wires' values sets (libsnark's `generate_r1cs_witness`, circom's
+  `<--`), evaluated in build order by `CircuitInstance.weights`; only the
+  constraints that mention them bind them.
+- the gadgets on top: a private bit check, `pack`, the `lastbits_add`
+  modular adder (libsnark's `lastbits_gadget`) and `multipack`
+  (libsnark's `multipacking_gadget`); `builder/sha256.py` builds
+  SHA256Compress and a Merkle path from them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..field.host import PrimeField
 from . import words as W
@@ -19,8 +34,11 @@ from .words import Word8, Word64
 ZERO_WIRE = 0
 UNITY_WIRE = 1
 
-# connection kinds
-LEFT, RIGHT, OUTPUT = 0, 1, 2
+# connection kinds; C_TERM: a term of a constraint's given C
+LEFT, RIGHT, OUTPUT, C_TERM = 0, 1, 2, 3
+# the bits a field element packs, at most (libsnark's multipacking chunk
+# on BN254: 253 bits stay below r)
+PACK_BITS = 253
 
 
 class Circuit:
@@ -30,9 +48,16 @@ class Circuit:
         self.field = field
         self.next_wire = 2
         # sub-circuit i: (left_inputs, right_inputs, output_wire); the
-        # inputs are [(weight, wire), ...]
+        # inputs are [(weight, wire), ...]; a constraint's output is None
         self.subs: List[Tuple[List[Tuple[int, int]],
-                              List[Tuple[int, int]], int]] = []
+                              List[Tuple[int, int]], Optional[int]]] = []
+        # hint i: (fn, input wires, output wires), in build order; fn maps
+        # the inputs' values to the outputs' values
+        self.hints: List[Tuple[Callable, List[int], List[int]]] = []
+        self.hint_of: Dict[int, int] = {}
+        # what sets a wire's value, in build order: a product gate's id,
+        # or -1 - i for hint i (`run`)
+        self.steps: List[int] = []
         # wire -> list of (kind, weight, sub_circuit_id)
         self.wire_assignments: Dict[int, List[Tuple[int, int, int]]] = {}
         self.wire_values: Dict[int, Optional[int]] = {
@@ -127,7 +152,52 @@ class Circuit:
         self.wire_assignments.setdefault(out, []).append(
             (OUTPUT, self.field.one(), sc_id))
         self.subs.append((list(left_inputs), list(right_inputs), out))
+        self.steps.append(sc_id)
         return out
+
+    def _lc(self, terms) -> List[Tuple[int, int]]:
+        """A linear combination [(weight, wire)] with each wire once, in
+        order of first appearance, weights reduced mod p and zero terms
+        dropped."""
+        p = self.field.p
+        acc: Dict[int, int] = {}
+        for weight, wire in terms:
+            acc[wire] = (acc.get(wire, 0) + weight) % p
+        return [(wt, w) for w, wt in acc.items() if wt]
+
+    def new_constraint(self, a, b, c=()) -> int:
+        """Register (sum a) * (sum b) = (sum c), each a list of (weight,
+        wire) (any int weights; a wire's terms are merged), C possibly
+        empty.  Makes no wire; returns the constraint's sub-circuit id."""
+        sc_id = len(self.subs)
+        left, right, out = self._lc(a), self._lc(b), self._lc(c)
+        for weight, wire in left:
+            self.wire_assignments.setdefault(wire, []).append(
+                (LEFT, weight, sc_id))
+        for weight, wire in right:
+            self.wire_assignments.setdefault(wire, []).append(
+                (RIGHT, weight, sc_id))
+        for weight, wire in out:
+            self.wire_assignments.setdefault(wire, []).append(
+                (C_TERM, weight, sc_id))
+        self.subs.append((left, right, None))
+        return sc_id
+
+    def new_hints(self, fn: Callable, inputs: Sequence[int],
+                  count: int) -> List[int]:
+        """`count` new wires whose values are fn(*input values) (a
+        sequence of `count` ints), set when they are evaluated."""
+        outs = [self.new_wire() for _ in range(count)]
+        h = len(self.hints)
+        self.hints.append((fn, list(inputs), outs))
+        self.steps.append(-1 - h)
+        for o in outs:
+            self.hint_of[o] = h
+        return outs
+
+    def new_hint(self, fn: Callable, inputs: Sequence[int]) -> int:
+        """A new wire whose value is fn(*input values)."""
+        return self.new_hints(lambda *v: (fn(*v),), inputs, 1)[0]
 
     # -- evaluation ---------------------------------------------------------
     def evaluate(self, wire: int) -> int:
@@ -139,6 +209,18 @@ class Circuit:
             if wid not in self.wire_values:
                 raise KeyError(f"cannot evaluate unknown wire {wid}")
             if self.wire_values[wid] is not None:
+                stack.pop()
+                continue
+            h = self.hint_of.get(wid)
+            if h is not None:
+                fn, ins, outs = self.hints[h]
+                pending = [w for w in ins if self.wire_values.get(w) is None]
+                if pending:
+                    stack.extend(pending)
+                    continue
+                vals = fn(*[self.wire_values[w] for w in ins])
+                for o, val in zip(outs, vals):
+                    self.wire_values[o] = val % f.p
                 stack.pop()
                 continue
             sc_id = None
@@ -181,6 +263,36 @@ class Circuit:
 
     def evaluate_to_vec(self, stream) -> List[int]:
         return [self.evaluate_to_num(w) for w in stream]
+
+    def run(self) -> None:
+        """Set every product gate's output and every hint's wires, in build
+        order (each reads only wires made before it), where their inputs
+        have values; the rest stay unset for `evaluate` to report."""
+        vals, p = self.wire_values, self.field.p
+        subs, hints = self.subs, self.hints
+        for step in self.steps:
+            if step >= 0:
+                left, right, out = subs[step]
+                if vals[out] is not None:
+                    continue
+                lhs = rhs = 0
+                try:
+                    for wt, w in left:
+                        lhs += wt * vals[w]
+                    for wt, w in right:
+                        rhs += wt * vals[w]
+                except TypeError:           # an input without a value
+                    continue
+                vals[out] = lhs * rhs % p
+            else:
+                fn, ins, outs = hints[-1 - step]
+                if vals[outs[0]] is not None:
+                    continue
+                args = [vals[w] for w in ins]
+                if None in args:
+                    continue
+                for o, val in zip(outs, fn(*args)):
+                    vals[o] = val % p
 
     def reset(self) -> None:
         """Clear wire values except zero/unity so the circuit can be
@@ -240,6 +352,57 @@ class Circuit:
         return self.new_sub_circuit(
             [(one, UNITY_WIRE), (neg, lhs), (one, rhs)],
             [(one, UNITY_WIRE), (one, lhs), (neg, rhs)])
+
+    # -- general R1CS gadgets (libsnark's) ---------------------------------
+    def enforce_bit(self, wire: int) -> int:
+        """A private bit check: wire * (wire - 1) = 0, no output wire."""
+        return self.new_constraint([(1, wire)], [(1, wire), (-1, UNITY_WIRE)])
+
+    def pack(self, bits: Sequence[int]) -> int:
+        """A hint wire holding sum 2^i bits[i] (LSB first), bound by one
+        packing constraint 1 * (sum 2^i bits[i]) = packed (libsnark's
+        `packing_gadget`; the bits are not checked here)."""
+        bits = list(bits)
+        assert len(bits) <= PACK_BITS, "pack: more bits than a field element"
+        packed = self.new_hint(
+            lambda *v: sum(x << i for i, x in enumerate(v)), bits)
+        self.new_constraint([(1, UNITY_WIRE)],
+                            [(1 << i, b) for i, b in enumerate(bits)],
+                            [(1, packed)])
+        return packed
+
+    def lastbits_add(self, terms, const: int = 0, width: int = 32,
+                     carries: int = 2) -> List[int]:
+        """Modular addition as libsnark's `lastbits_gadget` makes it: the
+        unreduced sum s = sum(weight * wire) + const, terms packed words,
+        is unpacked by hints into width + carries bits, bound by one
+        packing constraint 1 * (sum 2^i bit_i) = s and a private bit check
+        each.  Returns the low `width` bits (LSB first): s mod 2^width.
+        The sum must stay below 2^(width + carries)."""
+        terms = list(terms)
+        total = width + carries
+        ws = [wt for wt, _ in terms]
+
+        def split(*vals):
+            s = sum(wt * v for wt, v in zip(ws, vals)) + const
+            return [(s >> i) & 1 for i in range(total)]
+
+        bits = self.new_hints(split, [w for _, w in terms], total)
+        self.new_constraint([(1, UNITY_WIRE)],
+                            [(1 << i, b) for i, b in enumerate(bits)],
+                            terms + [(const, UNITY_WIRE)])
+        for b in bits:
+            self.enforce_bit(b)
+        return bits[:width]
+
+    def multipack(self, bits: Sequence[int],
+                  chunk: int = PACK_BITS) -> List[int]:
+        """libsnark's `multipacking_gadget`: the bits (LSB first in each
+        chunk) packed `chunk` at a time into field elements; returns the
+        packed wires (make them verify wires to publish the bits)."""
+        bits = list(bits)
+        return [self.pack(bits[i:i + chunk])
+                for i in range(0, len(bits), chunk)]
 
     # -- combinators --------------------------------------------------------
     def fan_in(self, wires: Sequence[int], gate) -> int:

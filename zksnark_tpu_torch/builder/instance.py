@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Callable, List, Sequence
 
 from ..frontend.r1cs import R1CS
-from .circuit import Circuit, LEFT, OUTPUT, RIGHT, UNITY_WIRE
+from .circuit import C_TERM, Circuit, LEFT, OUTPUT, RIGHT, UNITY_WIRE
 
 
 class CircuitInstance:
@@ -26,20 +26,28 @@ class CircuitInstance:
 
         verify_set = set(self.verification_wires)
         used = sorted(circuit.wire_assignments.keys())
+        used_set = set(used)
         ordered = [UNITY_WIRE]
-        ordered += [w for w in self.verification_wires if w in set(used)]
+        ordered += [w for w in self.verification_wires if w in used_set]
         ordered += [w for w in used
                     if w != UNITY_WIRE and w not in verify_set]
         self.ordered_wires = ordered
 
     def weights(self, inputs: Sequence[int]) -> List[int]:
-        """Assign circuit inputs, evaluate every ordered wire."""
+        """From a reset circuit: assign the inputs, set the gates' and
+        hints' wires in build order (`Circuit.run`), then read every
+        ordered wire (`evaluate` reports one left unset)."""
         if len(inputs) != len(self.input_wires):
             raise ValueError(
                 "must have the same number of input wires and assignments")
+        c = self.circuit
+        c.reset()
         for wire, value in zip(self.input_wires, inputs):
-            self.circuit.set_value(wire, value)
-        return [self.circuit.evaluate(w) for w in self.ordered_wires]
+            c.set_value(wire, value)
+        c.run()
+        vals = c.wire_values
+        return [vals[w] if vals[w] is not None else c.evaluate(w)
+                for w in self.ordered_wires]
 
     def r1cs(self) -> R1CS:
         """Emit the constraint system with rows aligned to
@@ -59,6 +67,8 @@ class CircuitInstance:
                     vi.append((root, weight))
                 elif kind == OUTPUT:
                     wi.append((root, self.circuit.field.one()))
+                elif kind == C_TERM:
+                    wi.append((root, weight))
             u.append(ui)
             v.append(vi)
             w.append(wi)

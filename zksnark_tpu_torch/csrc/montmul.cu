@@ -17,7 +17,9 @@
 // consumers is later work.
 //
 // zk_montmul_add fuses two Fr products with broadcast operands and their
-// sum (out = a x + b y), for the prover's blinded scalars.
+// sum (out = a x + b y), for the prover's blinded scalars; zk_wide_rows
+// sums the products of a matrix's wide rows (a segmented sum of
+// Montgomery products over CSR rows).
 //
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch; launches on the caller's stream and never synchronises.
@@ -65,7 +67,68 @@ __global__ void __launch_bounds__(256)
   bn254::store_elem(out, i, r);
 }
 
+// The wide rows of a constraint matrix (those the prover's ELL leaves
+// out, groth16/prover.py), in CSR: out[rows[r]] = sum over j in [ptr[r],
+// ptr[r + 1]) of val[j] w[idx[j]] 2^-256 mod r, over Fr.  A group of g
+// lanes (a power of two up to 32, inside one warp) takes a row: lane l
+// the terms l, l + g, ..., accumulating in registers; the group's sums
+// then meet by shuffles into lane 0, which writes the row.  Sums of
+// canonical residues do not depend on their order, so the result is the
+// plain version's bit for bit.  Each term reads a 4 B index, a 32 B value
+// and a 32 B witness element; each row writes 32 B.
+__global__ void __launch_bounds__(256)
+    wide_rows_kernel(const uint32_t* __restrict__ w,
+                     const int* __restrict__ idx,
+                     const uint32_t* __restrict__ val,
+                     const long long* __restrict__ ptr,
+                     const long long* __restrict__ rows,
+                     uint32_t* __restrict__ out, long long n_rows, int g) {
+  using F = bn254::FrField;
+  long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  long long r = t / g;
+  int lane = (int)(t % g);
+  bn254::Fe acc;
+#pragma unroll
+  for (int k = 0; k < 8; k++) acc.v[k] = 0;
+  if (r < n_rows) {
+    long long end = ptr[r + 1];
+    for (long long j = ptr[r] + lane; j < end; j += g) {
+      bn254::Fe a = bn254::load_elem<bn254::Fe>(val, j);
+      bn254::Fe b = bn254::load_elem<bn254::Fe>(w, idx[j]);
+      bn254::mont_mul<F>(a.v, a.v, b.v);
+      bn254::add_mod<F>(acc.v, acc.v, a.v);
+    }
+  }
+  // every lane of the warp takes part (blocks are whole warps and no lane
+  // has returned); lane 0 of a group reads lanes below g only
+  for (int off = g >> 1; off > 0; off >>= 1) {
+    uint32_t o[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++)
+      o[k] = __shfl_down_sync(0xffffffffu, acc.v[k], off, g);
+    bn254::add_mod<F>(acc.v, acc.v, o);
+  }
+  if (r < n_rows && lane == 0) bn254::store_elem(out, rows[r], acc);
+}
+
 }  // namespace
+
+extern "C" int zk_wide_rows(const void* w, const void* idx, const void* val,
+                            const void* ptr, const void* rows, void* out,
+                            long long n_rows, int g, void* stream) {
+  if (n_rows <= 0) return 0;
+  if (g < 1 || g > 32 || (g & (g - 1))) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long lanes = n_rows * g;
+  const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
+  wide_rows_kernel<<<blocks, threads, 0,
+                     reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(w), static_cast<const int*>(idx),
+      static_cast<const uint32_t*>(val), static_cast<const long long*>(ptr),
+      static_cast<const long long*>(rows), static_cast<uint32_t*>(out),
+      n_rows, g);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int zk_montmul_add(const void* a, const void* b, const void* xy,
                               void* out, long long n, void* stream) {

@@ -8,7 +8,8 @@ unused slots hold all-zero constraint rows.
           values -> a segmented field sum per wire -> fixed-base comb
           encryptions (one comb launch: a mixed add per 8-bit digit) ->
           batch_normalize (prefix products on the scan kernel)
-  prove   witness x R^2 -> ELL gather-multiply-sum -> iNTTs -> coset-NTT
+  prove   witness x R^2 -> ELL gather-multiply-sum and the wide rows'
+          CSR sums -> iNTTs -> coset-NTT
           quotient -> five Pippenger MSMs (four G1, one G2), the
           blinding (r, s) folded into them -> host assembly of A, B, C
           (affine points and two adds)
@@ -63,7 +64,7 @@ from ..ops import curve_kernels as ck
 from ..ops import msm as msmod
 from ..ops import ntt as nttmod
 from ..ops import scans
-from ..ops.montmul import from_mont, mont_mul, mont_mul_add
+from ..ops.montmul import from_mont, mont_mul, mont_mul_add, wide_rows
 from ..utils import profiling
 from .protocol import Proof, SigmaG1, SigmaG2
 
@@ -74,14 +75,58 @@ L = params.NUM_LIMBS
 # Circuit compilation: R1CS -> device tables over a radix-2 domain
 # ---------------------------------------------------------------------------
 
+# A launch of the wide-row kernel weighs as much as this many ELL slots
+# read (36 B each: ~38 MB, ~11 us at 3.35 TB/s): rows leave the ELL only
+# where that saves more.
+WIDE_LAUNCH_SLOTS = 1 << 20
+
+
+@dataclass
+class WideRows:
+    """The rows of a matrix wider than its ELL, as CSR: wide row r sums
+    val[j] * w[idx[j]] over j in [ptr[r], ptr[r + 1]) into row rows[r]
+    (`ops.montmul.wide_rows`), `group` lanes to a row; the rows longest
+    first."""
+
+    idx: torch.Tensor    # (nnz,) int32 wire indices
+    val: torch.Tensor    # (nnz, 8) Montgomery Fr values
+    ptr: torch.Tensor    # (rows + 1,) int64
+    rows: torch.Tensor   # (rows,) int64 constraint indices
+    group: int
+
+    @property
+    def nnz(self) -> int:
+        return self.idx.shape[0]
+
+
 @dataclass
 class EllMatrix:
-    """Gate-major padded sparse matrix: row g holds the (wire, value) pairs
-    contributing to constraint g.  Padding entries point at wire 0 with
-    value 0."""
+    """Gate-major sparse matrix split by row width: row g's (wire, value)
+    pairs in an (n, k0) ELL when the row has at most k0 of them, padding
+    entries pointing at wire 0 with value 0; the wider rows (their ELL
+    rows all padding) in `wide`, None where there are none."""
 
-    idx: torch.Tensor   # (n, k) int64 wire indices
-    val: torch.Tensor   # (n, k, 8) Montgomery Fr values
+    idx: torch.Tensor   # (n, k0) int64 wire indices
+    val: torch.Tensor   # (n, k0, 8) Montgomery Fr values
+    wide: Optional[WideRows] = None
+
+    def take_rows(self, rows: torch.Tensor) -> "EllMatrix":
+        """The matrix of the constraints `rows` (distinct), in that
+        order."""
+        idx, val, wide = self.idx[rows], self.val[rows], self.wide
+        if wide is None:
+            return EllMatrix(idx=idx, val=val)
+        pos = torch.full((self.idx.shape[0],), -1, dtype=torch.int64,
+                         device=rows.device)
+        pos[rows] = torch.arange(rows.shape[0], device=rows.device)
+        local = pos[wide.rows]
+        keep = local >= 0
+        counts = wide.ptr[1:] - wide.ptr[:-1]
+        entries = torch.repeat_interleave(keep, counts)
+        ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts[keep], 0)])
+        return EllMatrix(idx=idx, val=val, wide=WideRows(
+            wide.idx[entries], wide.val[entries], ptr, local[keep],
+            wide.group))
 
 
 @dataclass
@@ -101,42 +146,107 @@ class DeviceQAP:
     def device(self) -> torch.device:
         return self.domain.device
 
+    @property
+    def wide_nonzeros(self) -> int:
+        return sum(m.wide.nnz for m in (self.u, self.v, self.w)
+                   if m.wide is not None)
 
-def _to_ell(rows: List[List[Tuple[int, int]]], root_index, n: int,
-            device) -> EllMatrix:
-    """Per-wire sparse rows -> gate-major ELL tables."""
-    per_gate: List[List[Tuple[int, int]]] = [[] for _ in range(n)]
-    for wire, points in enumerate(rows):
-        for root, value in points:
-            per_gate[root_index[root]].append((wire, value))
-    k = max(1, max((len(g) for g in per_gate), default=1))
-    idx = np.zeros((n, k), dtype=np.int64)
-    vals = np.zeros((n, k), dtype=object)
-    for g, entries in enumerate(per_gate):
-        for j, (wire, value) in enumerate(entries):
-            idx[g, j] = wire
-            vals[g, j] = value
-    return EllMatrix(idx=torch.from_numpy(idx).to(device),
-                     val=torch.from_numpy(FR_CTX.to_mont_np(vals)).to(device))
+
+def narrow_width(n: int, width_counts: np.ndarray) -> int:
+    """k0: the ELL width that reads the fewest slots, where each row
+    wider than k0 costs its non-zeros and one slot more, and the wide rows
+    a launch (`WIDE_LAUNCH_SLOTS`); width_counts[k] rows have k non-zeros.
+    Ties keep the rows in the ELL."""
+    widths = np.arange(width_counts.shape[0])
+    best, best_cost = max(1, widths[-1]), None
+    for k in range(best, 0, -1):
+        wide = widths > k
+        cost = n * k + int(((widths[wide] + 1) * width_counts[wide]).sum())
+        cost += WIDE_LAUNCH_SLOTS if width_counts[wide].any() else 0
+        if best_cost is None or cost < best_cost:
+            best, best_cost = k, cost
+    return best
+
+
+def _wide_group(widest: int) -> int:
+    """Lanes to a wide row: the smallest power of two that leaves the
+    widest row at most 8 terms a lane, at most a warp."""
+    g = 1
+    while g < 32 and widest > 8 * g:
+        g *= 2
+    return g
+
+
+def _split_layout(rows: List[List[Tuple[int, int]]], root_index, n: int,
+                  device, counts: dict) -> EllMatrix:
+    """Per-wire sparse rows -> the split layout (`EllMatrix`), built from
+    flat arrays: no Python object a slot.  Within a constraint the
+    entries keep the order of their wires.  Adds the layout's numbers to
+    `counts`."""
+    per_wire = np.fromiter((len(r) for r in rows), np.int64, len(rows))
+    nnz = int(per_wire.sum())
+    wires = np.repeat(np.arange(len(rows), dtype=np.int64), per_wire)
+    gates = np.fromiter((root_index[root] for r in rows for root, _ in r),
+                        np.int64, nnz)
+    table: dict = {}
+    vcode = np.fromiter((table.setdefault(v, len(table)) + 1
+                         for r in rows for _, v in r), np.int64, nnz)
+    values = FR_CTX.to_mont_np([0] + list(table))     # code 0: padding
+    order = np.argsort(gates, kind="stable")
+    gates, wires, vcode = gates[order], wires[order], vcode[order]
+    width = np.bincount(gates, minlength=n)
+    k0 = narrow_width(n, np.bincount(width))
+    start = np.concatenate([[0], np.cumsum(width)[:-1]])
+    narrow = width[gates] <= k0
+    slot = np.arange(nnz) - start[gates]
+    idx = np.zeros((n, k0), dtype=np.int64)
+    vix = np.zeros((n, k0), dtype=np.int64)
+    idx[gates[narrow], slot[narrow]] = wires[narrow]
+    vix[gates[narrow], slot[narrow]] = vcode[narrow]
+    ell = EllMatrix(idx=torch.from_numpy(idx).to(device),
+                    val=torch.from_numpy(values[vix]).to(device))
+    wide_rows = np.flatnonzero(width > k0)
+    wide_rows = wide_rows[np.argsort(-width[wide_rows], kind="stable")]
+    lens = width[wide_rows]
+    if wide_rows.size:
+        ptr = np.concatenate([[0], np.cumsum(lens)])
+        sel = np.repeat(start[wide_rows] - ptr[:-1], lens) + np.arange(
+            ptr[-1])
+        ell.wide = WideRows(
+            idx=torch.from_numpy(wires[sel].astype(np.int32)).to(device),
+            val=torch.from_numpy(values[vcode[sel]]).to(device),
+            ptr=torch.from_numpy(ptr.astype(np.int64)).to(device),
+            rows=torch.from_numpy(wide_rows.astype(np.int64)).to(device),
+            group=_wide_group(int(lens[0])))
+    narrow_nnz = int(narrow.sum())
+    counts["narrow_rows"] += n - wide_rows.size
+    counts["wide_rows"] += wide_rows.size
+    counts["wide_nonzeros"] += nnz - narrow_nnz
+    counts["padded_slots"] += n * k0 - narrow_nnz
+    counts["product_slots"] += n * k0 + nnz - narrow_nnz
+    return ell
 
 
 @torch.inference_mode()
 def compile_r1cs(r1cs: R1CS, min_log_n: int = 1, device=None) -> DeviceQAP:
     """Lay the constraint system out on the smallest 2^k >= num_gates, on
-    `device` (None: the CUDA card)."""
+    `device` (None: the CUDA card).  Each of u, v, w is split by row width
+    (`EllMatrix`); the layout's numbers go to
+    `utils.profiling.set_layout`."""
     dev = resolve_device(device)
     n_gates = r1cs.num_gates
     log_n = max(min_log_n, max(1, (n_gates - 1).bit_length()))
     domain = nttmod.get_domain(log_n, dev)
     root_index = {r: i for i, r in enumerate(r1cs.roots)}
+    counts = dict.fromkeys(profiling.LAYOUT_COUNTERS[3:], 0)
+    mats = [_split_layout(rows, root_index, domain.n, dev, counts)
+            for rows in (r1cs.u, r1cs.v, r1cs.w)]
+    profiling.set_layout(
+        **{f"narrow_width_{name}": m.idx.shape[1]
+           for name, m in zip("uvw", mats)}, **counts)
     return DeviceQAP(
-        domain=domain,
-        u=_to_ell(r1cs.u, root_index, domain.n, dev),
-        v=_to_ell(r1cs.v, root_index, domain.n, dev),
-        w=_to_ell(r1cs.w, root_index, domain.n, dev),
-        num_wires=r1cs.num_wires,
-        input=r1cs.input,
-    )
+        domain=domain, u=mats[0], v=mats[1], w=mats[2],
+        num_wires=r1cs.num_wires, input=r1cs.input)
 
 
 def domain_roots(domain: nttmod.Domain) -> List[int]:
@@ -286,22 +396,26 @@ def _setup_scalars(domain, num_wires: int, ells, xi_mont, alpha_mont,
                    beta_mont, txd_mont, dinv_mont):
     """All CRS scalar vectors: the Lagrange values at the trapdoor x in ONE
     iNTT (L_g(x) = iNTT(xi)[g]), combined_i = beta*u_i(x) + alpha*v_i(x)
-    + w_i(x) per wire as a segmented field sum over the ELL entries, and
+    + w_i(x) per wire as a segmented field sum over the ELL and wide-row
+    entries, and
     xi_t / sum_delta as pointwise products.  Returns standard-form
     (xi, xi_t, sum_delta scalars)."""
     lag = nttmod.intt(domain, xi_mont)                   # (n, 8) Montgomery
 
-    def prods(ell, scale):
+    keys, vals = [], []
+    for ell, scale in zip(ells, (beta_mont, alpha_mont, None)):
         lg = lag if scale is None else mont_mul(FR_CTX, lag,
                                                 scale.unsqueeze(0))
-        pr = mont_mul(FR_CTX, ell.val, lg.unsqueeze(1))  # (n, k, 8)
-        return pr.reshape(-1, L), ell.idx.reshape(-1)
-
-    (pu, iu), (pv, iv), (pw, iw) = (prods(ells[0], beta_mont),
-                                    prods(ells[1], alpha_mont),
-                                    prods(ells[2], None))
+        pr = mont_mul(FR_CTX, ell.val, lg.unsqueeze(1))  # (n, k0, 8)
+        keys.append(ell.idx.reshape(-1))
+        vals.append(pr.reshape(-1, L))
+        if ell.wide is not None:
+            wd = ell.wide
+            rows = torch.repeat_interleave(wd.rows, wd.ptr[1:] - wd.ptr[:-1])
+            keys.append(wd.idx.to(torch.int64))
+            vals.append(mont_mul(FR_CTX, wd.val, lg[rows]))
     combined = scans.field_segment_sums(
-        FR_CTX, torch.cat([iu, iv, iw]), torch.cat([pu, pv, pw]),
+        FR_CTX, torch.cat(keys), torch.cat(vals),
         num_wires)                                       # (wires, 8) mont
     xi_std = from_mont(FR_CTX, xi_mont)
     xi_t_std = from_mont(
@@ -444,20 +558,31 @@ def prove_sets(crs: DeviceCRS) -> ProveSets:
 
 def _weighted_evals(ell: EllMatrix, weights_mont: torch.Tensor
                     ) -> torch.Tensor:
-    """Evaluations of sum_i w_i * row_i on the domain: ELL gather-mul-sum."""
-    prods = mont_mul(FR_CTX, weights_mont[ell.idx], ell.val)   # (n, k, 8)
+    """Evaluations of sum_i w_i * row_i on the domain: ELL gather-mul-sum,
+    then the wide rows' sums written over their (all-padding) ELL rows."""
+    prods = mont_mul(FR_CTX, weights_mont[ell.idx], ell.val)  # (n, k0, 8)
     acc = prods[:, 0]
     for j in range(1, prods.shape[1]):
         acc = l_add(FR_CTX, acc, prods[:, j])
+    if ell.wide is not None:
+        wd = ell.wide
+        acc = wide_rows(weights_mont, wd.idx, wd.val, wd.ptr, wd.rows,
+                        acc.contiguous(), wd.group)
     return acc
 
 
-def _witness_quotient(domain, n_input: int, ells, weights_mont):
-    """ELL witness reduction -> iNTT -> coset quotient.  Returns
-    standard-form scalar vectors (u, v, h, tail-witness).  Each transform
-    runs once: the quotient reuses the u and v coefficients."""
-    u_c, v_c, w_c = (nttmod.intt(domain, _weighted_evals(e, weights_mont))
-                     for e in ells)
+def _witness_quotient(domain, n_input: int, ells, weights_mont,
+                      marks=None):
+    """Witness reduction (the split layout) -> iNTT -> coset quotient.
+    Returns standard-form scalar vectors (u, v, h, tail-witness).  Each
+    transform runs once: the quotient reuses the u and v coefficients.
+    marks: `utils.profiling.StreamMarks` that get a mark after the three
+    weighted evaluations."""
+    evals = [_weighted_evals(e, weights_mont) for e in ells]
+    if marks is not None:
+        marks.mark()
+    u_c, v_c, w_c = (nttmod.intt(domain, e) for e in evals)
+    del evals
     h_c = nttmod.divide_by_vanishing(domain, u_c, v_c, w_c)
     return (from_mont(FR_CTX, u_c), from_mont(FR_CTX, v_c),
             from_mont(FR_CTX, h_c),
@@ -489,11 +614,11 @@ def _prove_core(domain, n_input: int, window_bits: int, ells,
     size; their Horner tails in one launch) and the G2 MSM, the blinding
     folded in (`_blinding_limbs` on the device as `blind`).  Returns the
     Jacobian (A, C - h - c_delta, B2, h, c_delta).  marks:
-    `utils.profiling.StreamMarks` that get a mark after the quotient and
-    one after the G2 MSM."""
+    `utils.profiling.StreamMarks` that get a mark after the weighted
+    evaluations, one after the quotient and one after the G2 MSM."""
     n = domain.n
     u_std, v_std, h_std, wit_std = _witness_quotient(
-        domain, n_input, ells, weights_mont)
+        domain, n_input, ells, weights_mont, marks)
     if marks is not None:
         marks.mark()
     m = sets.xi_g1.z.shape[0]
@@ -543,10 +668,12 @@ def device_prove(
     upload, the Montgomery form and every launch), `prove.wait` (the host
     waiting for the card: one synchronize) and `prove.assemble` (the
     affine points and two adds; its attribute `host_scalar_muls` counts
-    the host scalar multiplications run meanwhile); on one CUDA card
-    also the device spans `quotient` (from before the Montgomery form to
-    the quotient's end) and `msm` (to the G2 MSM's end) from marks on
-    the stream."""
+    the host scalar multiplications run meanwhile); `prove.issue` has
+    the attribute `wide_nonzeros`, the non-zeros of the layout's wide
+    rows; on one CUDA card also the device spans `quotient` (from before
+    the Montgomery form to the quotient's end), `msm` (to the G2 MSM's
+    end) and `evals` (from before the Montgomery form to the end of the
+    three weighted evaluations) from marks on the stream."""
     dev = dqap.device
     f = FR_CTX.p
     with profiling.span("prove"):
@@ -562,7 +689,8 @@ def device_prove(
             w_limbs = FR_CTX.to_limbs_np(w_full)
             blind_limbs = _blinding_limbs(r, s)
 
-        with profiling.span("prove.issue"):
+        with profiling.span("prove.issue",
+                            wide_nonzeros=dqap.wide_nonzeros):
             marks = profiling.stream_marks(dev) if mesh is None else None
             w_std = torch.from_numpy(w_limbs).to(dev)
             blind = torch.from_numpy(blind_limbs).to(dev)
@@ -588,7 +716,8 @@ def device_prove(
             if profiling.recording() and dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         if marks is not None:
-            marks.close(("quotient", "msm"))
+            marks.close((("quotient", 0, 2), ("msm", 2, 3),
+                         ("evals", 0, 1)))
 
         with profiling.span("prove.assemble") as sp:
             muls = sum(hc.SCALAR_MULS.values())

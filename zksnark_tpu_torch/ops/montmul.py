@@ -1,7 +1,8 @@
 """K1: batched Montgomery multiplication — the CUDA kernel
 (`csrc/montmul.cu`), its plain PyTorch version, and the launch counts;
 `mont_mul_add`, two Fr products with broadcast operands and their sum
-in one launch.
+in one launch; `wide_rows`, the segmented sums of Montgomery products
+over a constraint matrix's wide rows (CSR) in one launch.
 
 Counterpart of `zksnark_tpu/ops/montmul.py` (`mont_mul_pallas`,
 `mont_mul_auto`, `from_mont_auto`).  `mont_mul` broadcasts its operands,
@@ -33,7 +34,8 @@ L = limb.L
 
 # launches of the kernels, by field (`profiling.launch_counts()`)
 LAUNCHES = profiling.launch_counter(__name__, (
-    "montmul_fr", "montmul_fq", "montmul_add_fr", "mont_scan_fq", "mont_scan_fq2", "normalize_fq", "normalize_fq2"))
+    "montmul_fr", "montmul_fq", "montmul_add_fr", "mont_scan_fq", "mont_scan_fq2", "normalize_fq", "normalize_fq2",
+    "wide_rows_fr"))
 
 
 def kernel_name(ctx: MontCtx) -> str:
@@ -108,6 +110,55 @@ def mont_mul_add(a: torch.Tensor, b: torch.Tensor,
             out.shape[0], torch.cuda.current_stream(a.device).cuda_stream)
         _build.check(code, "montmul_add")
         LAUNCHES["montmul_add_fr"] += 1
+    return out
+
+
+def wide_rows_plain(w: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                    ptr: torch.Tensor, rows: torch.Tensor,
+                    out: torch.Tensor) -> torch.Tensor:
+    """The plain version: every term's product, then a segmented field
+    sum a row (`ops.scans.field_segment_sums`), copied into out's rows."""
+    from . import scans
+
+    n_rows = rows.shape[0]
+    seg = torch.repeat_interleave(
+        torch.arange(n_rows, device=rows.device), ptr[1:] - ptr[:-1])
+    prods = mont_mul_plain(FR_CTX, val, w[idx.to(torch.int64)])
+    sums = scans.field_segment_sums(FR_CTX, seg, prods, n_rows)
+    return out.index_copy_(0, rows, sums)
+
+
+def wide_rows(w: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+              ptr: torch.Tensor, rows: torch.Tensor, out: torch.Tensor,
+              group: int = 32) -> torch.Tensor:
+    """The wide rows of a matrix in CSR, over Fr in Montgomery form:
+    out[rows[r]] = sum over j in [ptr[r], ptr[r + 1]) of val[j] *
+    w[idx[j]] * R^-1, written into `out` (an (n, 8) tensor) and returned.
+    idx int32, ptr and rows int64, `group` lanes to a row (a power of two
+    up to 32).  One launch of `zk_wide_rows` on CUDA tensors; the plain
+    version on CPU tensors."""
+    if (idx.dtype != torch.int32 or ptr.dtype != torch.int64
+            or rows.dtype != torch.int64 or val.shape != idx.shape + (L,)
+            or ptr.shape != (rows.shape[0] + 1,) or out.dim() != 2):
+        raise ValueError(
+            f"wide_rows: idx {tuple(idx.shape)} {idx.dtype}, val "
+            f"{tuple(val.shape)}, ptr {tuple(ptr.shape)} {ptr.dtype}, rows "
+            f"{tuple(rows.shape)} {rows.dtype}, out {tuple(out.shape)}")
+    if out.device.type == "cpu":
+        return wide_rows_plain(w, idx, val, ptr, rows, out)
+    if out.device.type != "cuda":
+        raise ValueError(f"wide_rows: unsupported device {out.device}")
+    if not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError("wide_rows: out must be contiguous and aligned")
+    fw, fval = _flat(w), _flat(val)
+    idx, ptr, rows = idx.contiguous(), ptr.contiguous(), rows.contiguous()
+    if rows.shape[0]:
+        code = _build.lib("montmul.cu").zk_wide_rows(
+            fw.data_ptr(), idx.data_ptr(), fval.data_ptr(), ptr.data_ptr(),
+            rows.data_ptr(), out.data_ptr(), rows.shape[0], group,
+            torch.cuda.current_stream(out.device).cuda_stream)
+        _build.check(code, "wide_rows")
+        LAUNCHES["wide_rows_fr"] += 1
     return out
 
 

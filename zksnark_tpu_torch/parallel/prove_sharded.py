@@ -3,10 +3,11 @@
 Counterpart of `zksnark_tpu/parallel/prove_sharded.py`, in the same
 layout:
 
-- **witness reduction** (ELL gather-multiply-sum): gate-sharded, with the
-  constraint rows taken in the four-step NTT's evaluation order
-  (`eval_perm`), so this rank's reduction output is already its C-layout
-  block;
+- **witness reduction** (the split layout: ELL gather-multiply-sum and
+  the wide rows' CSR sums): gate-sharded, with the constraint rows taken
+  in the four-step NTT's evaluation order (`eval_perm`,
+  `EllMatrix.take_rows`), so this rank's reduction output is already its
+  C-layout block;
 - **quotient**: the four-step transforms of `ntt_sharded`, 3 iNTT ->
   coset scale -> 3 NTT -> pointwise -> 1 iNTT on local blocks: 7
   all-to-alls, never a whole vector gathered;
@@ -82,11 +83,12 @@ def sharded_witness_quotient(mesh: Mesh, domain: nttmod.Domain,
                              n_input: int, num_wires: int, ells,
                              weights_mont: torch.Tensor):
     """The distributed four-step quotient pipeline.  ells: the circuit's
-    whole (u, v, w) `EllMatrix` tables; weights_mont: the whole (wires, 8)
-    Montgomery witness.  Returns this rank's stripes of n/d standard-form
-    scalars (u, v, h, wit): u/v/h in four-step coefficient-perm order
-    (pair them with coeff_perm-ordered CRS points), wit the natural-order
-    witness tail, padded with zeros to n."""
+    whole (u, v, w) `EllMatrix` tables (each with its wide rows);
+    weights_mont: the whole (wires, 8) Montgomery witness.  Returns this
+    rank's stripes of n/d standard-form scalars (u, v, h, wit): u/v/h in
+    four-step coefficient-perm order (pair them with coeff_perm-ordered
+    CRS points), wit the natural-order witness tail, padded with zeros to
+    n."""
     d = mesh.size
     sd = _sharded_domain(domain.log_n, d, domain.device)
     n, n1, n2 = sd.n, sd.n1, sd.n2
@@ -99,9 +101,7 @@ def sharded_witness_quotient(mesh: Mesh, domain: nttmod.Domain,
 
     def evals_c(ell):
         # this rank's gates in eval_perm order: its C-layout block
-        e = prover_mod._weighted_evals(
-            prover_mod.EllMatrix(idx=ell.idx[ep_l], val=ell.val[ep_l]),
-            weights_mont)
+        e = prover_mod._weighted_evals(ell.take_rows(ep_l), weights_mont)
         return e.reshape(n1 // d, n2, L)
 
     u_m, v_m, w_m = (nsh.intt_local_block(sd, mesh, evals_c(e), tw_inv_l)

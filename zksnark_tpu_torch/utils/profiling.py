@@ -19,10 +19,13 @@ The port's counterpart of `zksnark_tpu/utils/profiling.py`.
   `tracing()`; otherwise a span costs a flag check and records nothing.
 - Device stage marks: in a recording tree on a CUDA card,
   `stream_marks(device)` records CUDA events on the card's stream
-  (`mark()`), and `close(names)`, once the stream has been waited for,
-  turns them into spans of the stream's wall time between marks.
+  (`mark()`), and `close(intervals)`, once the stream has been waited
+  for, turns them into spans of the stream's wall time between marks.
 - Launch counters: `launch_counter(owner, kernels)` makes a module's
   counter and registers it; `launch_counts()` reads them all.
+- Layout counters: `groth16.prover.compile_r1cs` sets the numbers of the
+  constraint matrices' split layout (`set_layout`, `LAYOUT_COUNTERS`);
+  `layout_counts()` reads the last compile's.
 
 `MULADDS_PER_MONT_MUL` counts the port's own unit: 32-bit multiply-adds,
 264 per Montgomery product (CIOS on 8 words: 8 rows of 2 x 16
@@ -41,7 +44,7 @@ import time
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, NamedTuple, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 # 32-bit multiply-adds per Montgomery product
 MULADDS_PER_MONT_MUL = 8 * (2 * 16 + 1)
@@ -203,16 +206,16 @@ class StreamMarks:
         ev.record(self.torch.cuda.current_stream(self.device))
         self.events.append(ev)
 
-    def close(self, names: Iterable[str]) -> None:
-        """One span a name, from each mark to the next: the stream's wall
-        time, idle bubbles included, in ns from the first mark."""
+    def close(self, intervals: Iterable[Tuple[str, int, int]]) -> None:
+        """One span an interval (name, i, j), from mark i to mark j: the
+        stream's wall time, idle bubbles included, in ns from the first
+        mark."""
         first, o = self.events[0], self.owner
-        t0 = 0
-        for name, ev in zip(names, self.events[1:]):
-            t1 = round(first.elapsed_time(ev) * 1e6)
-            _spans.append(Span(name, next(_ids), o.id, o.prove, t0, t1,
+        at = [0] + [round(first.elapsed_time(ev) * 1e6)
+                    for ev in self.events[1:]]
+        for name, i, j in intervals:
+            _spans.append(Span(name, next(_ids), o.id, o.prove, at[i], at[j],
                                "stream", {}, True))
-            t0 = t1
 
 
 def stream_marks(device) -> Optional[StreamMarks]:
@@ -297,6 +300,33 @@ def reset_launch_counts() -> None:
     for counter in _counters.values():
         for k in counter:
             counter[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# layout counters
+# ---------------------------------------------------------------------------
+
+# summed over u, v and w but the widths: the ELL width k0 of each matrix,
+# the rows in the ELLs and in the wide rows' CSR, the CSR's non-zeros, the
+# ELL slots that hold padding and every product slot (ELL slots and CSR
+# non-zeros)
+LAYOUT_COUNTERS = ("narrow_width_u", "narrow_width_v", "narrow_width_w",
+                   "narrow_rows", "wide_rows", "wide_nonzeros",
+                   "padded_slots", "product_slots")
+_layout: Dict[str, int] = {}
+
+
+def set_layout(**values: int) -> None:
+    """The last compiled circuit's layout numbers (`LAYOUT_COUNTERS`)."""
+    if set(values) != set(LAYOUT_COUNTERS):
+        raise ValueError(f"set_layout: {sorted(values)}")
+    _layout.clear()
+    _layout.update(values)
+
+
+def layout_counts() -> Dict[str, int]:
+    """The layout numbers of the last `compile_r1cs` ({} before one)."""
+    return dict(_layout)
 
 
 # ---------------------------------------------------------------------------
