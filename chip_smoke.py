@@ -2371,7 +2371,7 @@ def keccak_phase(dev, n_bytes: int, n_proves: int) -> dict:
     dqap = timed("compile_r1cs (host ELL tables, copied to the card)",
                  lambda: prover.compile_r1cs(r1cs, device=dev))
     timed("witness codec to limbs (host)",
-          lambda: FR_CTX.to_limbs_np(weights))
+          lambda: FR_CTX.witness_limbs(weights, dqap.num_wires))
     timed("witness codec to JSON (host)",
           lambda: ser.witness_to_json(weights))
     public = kp.public_inputs(digest, n_checkers)

@@ -17,6 +17,8 @@ import threading
 import pytest
 import torch
 
+from zksnark_tpu_torch.field import witness_codec
+
 from zksnark_tpu_torch.bench import synthetic_square_chain
 from zksnark_tpu_torch.curve import bn254 as hc
 from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
@@ -67,14 +69,16 @@ def circuit():
 @pytest.fixture
 def prove(circuit, monkeypatch):
     """device_prove at 7 gates with the stood-in device pipeline; `hold`,
-    where given, is called inside it (in `prove.issue`)."""
+    where given, is called inside it (in `prove.issue`); `seen` gathers
+    the Montgomery-form witness each prove handed it."""
     dq, crs, wit, core = circuit
-    hold = []
+    hold, seen = [], []
 
     def fake_core(domain, n_input, window_bits, ells, sets, weights_mont,
                   blind, marks=None):
         assert marks is None            # no marks on the CPU
         assert sets is crs.sets
+        seen.append(weights_mont)
         for h in hold:
             h()
         # the blinding reaches the proof through the MSMs: here, an odd r
@@ -88,7 +92,7 @@ def prove(circuit, monkeypatch):
     def run(blinding=(7, 9)):
         return prover.device_prove(dq, crs, wit, blinding=blinding)
 
-    run.hold = hold
+    run.hold, run.seen = hold, seen
     return run
 
 
@@ -117,12 +121,37 @@ def test_one_prove_one_tree(prove, circuit):
     kids = sorted(_tree(spans, root), key=lambda s: s.start_ns)
     assert [s.name for s in kids] == STAGES
     assert len(spans) == 5
-    assert kids[0].attrs == {"wires": circuit[0].num_wires}
+    assert kids[0].attrs == {"wires": circuit[0].num_wires,
+                             "codec": "native", "reduced_wires": 0}
     t = root.start_ns
     for s in kids:
         assert s.parent == root.id and s.clock == "epoch" and s.ok
         assert t <= s.start_ns <= s.end_ns <= root.end_ns
         t = s.end_ns
+
+
+def test_encode_names_its_codec(prove, circuit, monkeypatch):
+    """`prove.encode` says which witness codec ran and how many weights it
+    reduced with Python's `%`; the native codec's proof, and the witness
+    it hands the device pipeline, are the Python codec's."""
+    codecs = {}
+    for codec in ("native", "python"):
+        if codec == "python":
+            monkeypatch.setattr(witness_codec, "_load", lambda: None)
+        profiling.clear_spans()
+        with profiling.tracing():
+            proof = prove()
+        (enc,) = [s for s in profiling.spans() if s.name == "prove.encode"]
+        codecs[codec] = proof, enc.attrs
+    wit = circuit[2]
+    assert codecs["native"][1]["codec"] == "native"
+    assert codecs["native"][1]["reduced_wires"] == 0
+    assert codecs["python"][1]["codec"] == "python"
+    assert codecs["python"][1]["reduced_wires"] == len(wit)
+    assert codecs["native"][0] == codecs["python"][0]
+    native, python = prove.seen
+    assert native.shape == (circuit[0].num_wires, 8)
+    assert torch.equal(native, python)
 
 
 def test_nothing_recorded_when_off(prove):

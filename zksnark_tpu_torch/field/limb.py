@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import params
+from . import params, witness_codec
 from .params import NUM_LIMBS
 
 L = NUM_LIMBS              # 8 u32 limbs
@@ -98,6 +98,25 @@ class MontCtx:
                        for x in arr.reshape(-1))
         out = np.frombuffer(buf, dtype="<i4").astype(np.int32)
         return out.reshape(arr.shape + (L,))
+
+    def witness_limbs(self, weights, num_wires: int):
+        """(limbs, codec, reduced): the (num_wires, 8) int32 limbs of each
+        weight mod p, zero past the weights (`to_limbs_np`'s bytes for the
+        padded weights); the codec that ran, "native"
+        (`witness_codec.encode`) or "python" (`to_limbs_np`, where the
+        native library is not available); and how many weights took
+        Python's `int(x) % p` (the native codec's values not already ints
+        in [0, p); the Python codec's every value).  More weights than
+        wires raise ValueError; a weight that `int(x) % p` rejects raises
+        what it raises."""
+        got = witness_codec.encode(weights, num_wires, self.p)
+        if got is not None:
+            return got[0], "native", got[1]
+        w = list(weights)
+        if len(w) > num_wires:
+            raise ValueError(f"{len(w)} weights for {num_wires} wires")
+        return (self.to_limbs_np(w + [0] * (num_wires - len(w))), "python",
+                len(w))
 
     def from_limbs_np(self, arr) -> np.ndarray:
         """(..., 8) int32 limbs -> object ndarray of python ints."""

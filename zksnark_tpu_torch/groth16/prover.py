@@ -664,7 +664,9 @@ def device_prove(
 
     Spans (`utils.profiling`, where the profiler or `tracing()` is on): a
     root `prove` and its four stages in turn, `prove.encode` (the
-    blinding, the witness's limbs on the host), `prove.issue` (the
+    blinding, the witness's limbs on the host, `MontCtx.witness_limbs`;
+    its attributes `codec`, "native" or "python", and `reduced_wires`,
+    the weights that took Python's `int(x) % p`), `prove.issue` (the
     upload, the Montgomery form and every launch), `prove.wait` (the host
     waiting for the card: one synchronize) and `prove.assemble` (the
     affine points and two adds; its attribute `host_scalar_muls` counts
@@ -677,17 +679,20 @@ def device_prove(
     dev = dqap.device
     f = FR_CTX.p
     with profiling.span("prove"):
-        with profiling.span("prove.encode", wires=dqap.num_wires):
+        with profiling.span("prove.encode", wires=dqap.num_wires) as sp:
             if blinding is None:
                 rr = rng or _random
                 blinding = _rank0_ints(mesh, [rr.randrange(1, f),
                                               rr.randrange(1, f)])
             r, s = (b % f for b in blinding)
-            w_full = list(weights) + [0] * (dqap.num_wires - len(weights))
-            # standard-form limbs on the host (bytes codec), Montgomery
-            # form on the device (one product with R^2)
-            w_limbs = FR_CTX.to_limbs_np(w_full)
+            # standard-form limbs on the host (the witness codec, padded
+            # to num_wires), Montgomery form on the device (one product
+            # with R^2)
+            w_limbs, codec, reduced = FR_CTX.witness_limbs(
+                weights, dqap.num_wires)
             blind_limbs = _blinding_limbs(r, s)
+            if sp is not None:
+                sp.attrs.update(codec=codec, reduced_wires=reduced)
 
         with profiling.span("prove.issue",
                             wide_nonzeros=dqap.wide_nonzeros):
