@@ -37,14 +37,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    arithmetic.  Each entry and its plain version then run on the same
    random CUDA inputs at the shapes the main path gives it: the two
    outputs must again be equal bit for bit, and both are timed with CUDA
-   events, the chains, the bucket scan, the NTT, the scan (every level
-   of a 2^20 prefix product), normalize (2^20 points), the comb (2^20
-   scalars, G1 and G2) and the MSM's tail (the bucket ends of a real
-   2^20 bucket scan, the 2^18 and 4096 fix-ups, the 64-point rounds,
-   Abel at W = 16; with the profiler's device time at the small shapes)
-   also beside the loop of launches that each replaces.  The G1 bucket scan is also checked at the keccak path's C
-   MSM digit columns (W = 16, c = 16, 2^18
-   positions, window 0 in {0, 1}, windows 1-15 all 0).
+   events: the chains, the bucket scan, the NTT, the scan (every level
+   of a 2^20 prefix product, and the whole product against itself on
+   the plain scan), normalize (2^20 points), the comb (2^20 scalars, G1
+   and G2) and the MSM's tail (the bucket ends of a real 2^20 bucket
+   scan, the 2^18 and 4096 fix-ups, the 64-point rounds, Abel at W =
+   16; with the profiler's device time at the small shapes).  The G1
+   bucket scan is also checked at the keccak path's C MSM digit columns
+   (W = 16, c = 16, 2^18 positions, window 0 in {0, 1}, windows 1-15
+   all 0).
 3. reference: a small circuit (n = 2^3) proves on the card and with the
    plain versions on the CPU; the two proofs must be equal.
 4. path: the main path at full size — the square-chain circuit with
@@ -124,7 +125,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    every log_n from 1 to 12 and the path's four-step batches, forward
    and inverse, bit-exact against its plain version and against the
    same transforms launched one at a time; and timed at the path's
-   batches beside that loop of launches.
+   batches.
 Each of phases 5-12 resets the kernel launch counts just before what it
 drives and reads them just after (a process's own counts for the CLI,
 the bench and each rank); the kernels' JSON line gives them by path.
@@ -154,19 +155,14 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-# peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and
-# 32-bit integer multiply-adds/s taken as half
-# the 67 TFLOP/s float32 rate (an FMA is 2 FLOPs; an SM has 64 INT32 lanes
-# for 128 FP32 lanes)
-PEAK_BYTES_S = 3.35e12
-PEAK_IMAD_S = 67e12 / 2 / 2
+# the card's peaks and the multiply-adds of a Montgomery product, as the
+# benchmark's roofline shares take them
+from benchmark.peaks import (  # noqa: E402
+    HBM_BYTES_PER_S, INT32_MULADD_PER_S, MULADDS_PER_MONT_MUL)
 
-# 32-bit multiply-adds per Montgomery product (CIOS, 8 words: 8 rows of
-# a*b_i and m*p, low and high halves, plus the 8 quotient digits) and
+SEED = 20261016                  # of every random input
 # 32-bit add/sub instructions per modular add or sub (8-word chain plus the
 # 8-word conditional subtract)
-IMAD_PER_MUL = 8 * (2 * 16 + 1)
-SEED = 20261016                  # of every random input
 OPS_PER_ADD = 16
 
 TPU_KERNELS = {
@@ -735,63 +731,6 @@ def comb_base(ops):
     return hc.g2_scalar_mul(hc.G2_GEN, params.ENCRYPT_G2_SCALE)
 
 
-def loop_prefix_prod(ops, x):
-    """What the scan kernel replaced (`curve/jacobian.py` _prefix_prod
-    before it): 64 steps a level, one product launch per step over the
-    n/64 lanes, then one product of the carries (the JAX package's scan).
-    With plain `ops` (FQ_OPS, FQ2_OPS) it launches nothing."""
-    n = x.shape[0]
-    c = min(64, n)
-    b = -(-n // c)
-    elem = x.shape[1:]
-    if b * c != n:
-        x = torch.cat([x, ops.one((b * c - n,), x.device)])
-    grid = x.reshape((b, c) + elem).transpose(0, 1)
-    within = torch.empty((c, b) + elem, dtype=x.dtype, device=x.device)
-    acc = ops.one((b,), x.device)
-    for j in range(c):
-        acc = ops.mul(acc, grid[j])
-        within[j] = acc
-    within = within.transpose(0, 1)
-    if b > 1:
-        carry = loop_prefix_prod(ops, torch.cat([ops.one((1,), x.device),
-                                                 acc[:-1]]))
-        within = ops.mul(carry.unsqueeze(1), within)
-    return within.reshape((b * c,) + elem)[:n]
-
-
-def loop_normalize(ops, x, y, z, pre, suf, tinv):
-    """What the normalize kernel replaced (`batch_normalize`'s tail before
-    it): six product launches (for Fq2 with the Karatsuba's additions in
-    plain PyTorch around each) and three selects."""
-    kops = ops.on_kernel()
-    one = kops.one(z.shape[:1], z.device)
-    inf = kops.is_zero(z)
-    pre_ex = torch.cat([one[:1], pre[:-1]])
-    suf_ex = torch.cat([suf[1:], one[:1]])
-    zinv = kops.mul(kops.mul(pre_ex, suf_ex), tinv.unsqueeze(0))
-    zi2 = kops.mul(zinv, zinv)
-    zi3 = kops.mul(zi2, zinv)
-    return (kops.select(inf, one, kops.mul(x, zi2)),
-            kops.select(inf, one, kops.mul(y, zi3)),
-            kops.select(inf, torch.zeros_like(one), one))
-
-
-def loop_comb(ops, table, scalars):
-    """What the comb kernel replaced (`groth16/prover.py` _comb_encrypt
-    before it): the (m, 32) int64 digits, then per window three gathers
-    and one elementwise madd launch."""
-    from zksnark_tpu_torch.curve import jacobian as jac
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-
-    digits = ck.comb_digits(scalars)
-    acc = jac.infinity(ops, (digits.shape[0],), scalars.device)
-    for w in range(digits.shape[1]):
-        d = digits[:, w]
-        acc = ck.madd(ops, acc, jac.JPoint(*(a[w][d] for a in table)))
-    return acc
-
-
 def scan_levels(n: int) -> list:
     """The `mont_scan` launches of one `_prefix_prod` of n elements, in
     order: (rows, row length, from carries, every prefix written)."""
@@ -802,6 +741,21 @@ def scan_levels(n: int) -> list:
     if b == 1:
         return [(1, c, False, True)]
     return [(b, c, False, False)] + scan_levels(b) + [(b, c, True, True)]
+
+
+@contextlib.contextmanager
+def scan_plain():
+    """Route `ops.montmul.mont_scan` to its plain version on CUDA tensors
+    too, for the duration: `curve.jacobian._prefix_prod` then runs as it
+    runs on the CPU, where the tests hold it to the JAX package's."""
+    from zksnark_tpu_torch.ops import montmul as mm
+
+    saved = mm.mont_scan
+    mm.mont_scan = mm.mont_scan_plain
+    try:
+        yield
+    finally:
+        mm.mont_scan = saved
 
 
 def host_fmul(fq2: bool):
@@ -824,7 +778,7 @@ def setup_chain_checks(dev, rng, n_rand: int, results: dict) -> None:
     elements, with and without carries and prefixes, zero elements (1 in
     16 of the random ones), rows of one element, one row of 64, a zero
     and a one carry, and `_prefix_prod` of n_rand + 37 elements against
-    the loop it replaced run on plain products.  Normalize: random
+    itself on the plain scan (`scan_plain`).  Normalize: random
     points (Z = 0 one time in 16) and products, one point alone, and
     batch_normalize of real points with other Z and infinities.  Comb:
     n_rand random scalars and the scalars 0 (the identity: every digit 0), 1, 2, 255,
@@ -866,7 +820,8 @@ def setup_chain_checks(dev, rng, n_rand: int, results: dict) -> None:
                     err = max(err, scan_err(grid, cr, collect))
         x = mont((n_rand + 37,), zeros=1 / 4096)
         got = jac._prefix_prod(kops, x)
-        want = loop_prefix_prod(ops, x)
+        with scan_plain():
+            want = jac._prefix_prod(ops, x)
         torch.cuda.synchronize()
         err = max(err, limb_err(got, want))
         # edge rows, against host ints: rows of one element from carries
@@ -989,13 +944,12 @@ SCAN_N = 1 << 20
 
 def setup_chain_timing(dev, seed: int, results: dict) -> None:
     """Setup's mont_scan, normalize and comb at the main path's shapes,
-    each entry beside its plain version and the loop of launches it
-    replaced, on the same random CUDA inputs, timed and compared bit for
-    bit.  mont_scan: every
-    level of one `_prefix_prod` of 2^20 elements (the row's ms, plain_ms
-    and bound_ms sum them), and the whole chain (kernel launches and the
-    glue between them) beside the loop.  normalize: 2^20 points.  comb:
-    2^20 scalars."""
+    each entry beside its plain version on the same random CUDA inputs,
+    timed and compared bit for bit.  mont_scan: every level of one
+    `_prefix_prod` of 2^20 elements (the row's ms, plain_ms and bound_ms
+    sum them), and the whole chain (kernel launches and the glue between
+    them) against itself on the plain scan.  normalize: 2^20 points.
+    comb: 2^20 scalars."""
     from zksnark_tpu_torch.curve import jacobian as jac
     from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
     from zksnark_tpu_torch.groth16 import prover
@@ -1015,7 +969,7 @@ def setup_chain_timing(dev, seed: int, results: dict) -> None:
         fq2 = ops.elem_ndim == 2
         ecount = (2,) if fq2 else ()
         elem_b = 32 * (2 if fq2 else 1)
-        mul_ops = IMAD_PER_MUL * (3 if fq2 else 1) + (
+        mul_ops = MULADDS_PER_MONT_MUL * (3 if fq2 else 1) + (
             5 * OPS_PER_ADD if fq2 else 0)
         per_shape = []
         for b, c, from_carry, collect in scan_levels(SCAN_N):
@@ -1041,14 +995,15 @@ def setup_chain_timing(dev, seed: int, results: dict) -> None:
         x = rnd((SCAN_N,) + ecount)
         kops = ops.on_kernel()
         chain_ms, got = time_cuda(lambda: jac._prefix_prod(kops, x), 10)
-        loop_ms, old = time_cuda(lambda: loop_prefix_prod(kops, x), 3)
-        err = limb_err(got, old)
+        with scan_plain():
+            want = jac._prefix_prod(ops, x)
+        err = limb_err(got, want)
         name = f"mont_scan_{fname}"
         tb = sum(p["bound_ms"] for p in per_shape)
         results[name].update(
             shape=[p["shape"] for p in per_shape],
             ms=sum(p["ms"] for p in per_shape), chain_ms=chain_ms,
-            loop_ms=loop_ms, plain_ms=sum(p["plain_ms"] for p in per_shape),
+            plain_ms=sum(p["plain_ms"] for p in per_shape),
             path_shape_err=max([err] + [p["err"] for p in per_shape]),
             checked_shapes=[p["shape"] for p in per_shape] + [[SCAN_N]],
             bound_ms=tb, bound_by=max(per_shape,
@@ -1056,55 +1011,49 @@ def setup_chain_timing(dev, seed: int, results: dict) -> None:
             per_shape=per_shape)
         log(f"[timing] {name}, one _prefix_prod of {SCAN_N}: kernel "
             f"{results[name]['ms']:.4f} ms over {len(per_shape)} launches "
-            f"(the chain with its glue {chain_ms:.4f} ms), loop of "
-            f"launches {loop_ms:.3f} ms, plain {results[name]['plain_ms']:.3f}"
-            f" ms, bound {tb:.5f} ms; max |chain - loop| = {err}")
+            f"(the chain with its glue {chain_ms:.4f} ms), plain "
+            f"{results[name]['plain_ms']:.3f} ms, bound {tb:.5f} ms; max "
+            f"|chain - plain chain| = {err}")
 
         # -- the normalize pass over 2^20 points -----------------------------
         args = [rnd((SCAN_N,) + ecount) for _ in range(5)] + [rnd(ecount)]
         ms, got = time_cuda(lambda: mm.normalize(ops, *args), 20)
-        loop_ms, old = time_cuda(lambda: loop_normalize(ops, *args), 5)
         plain_ms, want = time_cuda(lambda: mm.normalize_plain(ops, *args), 2)
-        err = max(limb_err(a, b) for pair in (zip(got, want), zip(old, want))
-                  for a, b in pair)
-        del got, old, want
+        err = max(limb_err(a, b) for a, b in zip(got, want))
+        del got, want
         bnd = bound(8 * elem_b * SCAN_N, 6 * mul_ops * SCAN_N)
         name = f"normalize_{fname}"
         results[name].update(
-            shape=[SCAN_N], ms=ms, loop_ms=loop_ms, plain_ms=plain_ms,
+            shape=[SCAN_N], ms=ms, plain_ms=plain_ms,
             path_shape_err=err, checked_shapes=[SCAN_N], **bnd)
-        log(f"[timing] {name} n={SCAN_N}: kernel {ms:.4f} ms, loop of "
-            f"launches {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); max |kernel - "
-            f"plain|, |loop - plain| = {err}")
+        log(f"[timing] {name} n={SCAN_N}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}); max |kernel - plain| = {err}")
 
         # -- the comb at 2^20 scalars -----------------------------------------
         table = prover._comb_table(ops, comb_base(ops), dev)
         scalars = rnd((COMB_M,))               # below 2^252 < r
         ms, got = time_cuda(lambda: ck.comb(ops, table, scalars), 5)
-        loop_ms, old = time_cuda(lambda: loop_comb(ops, table, scalars), 2)
         plain_ms, want = time_once(
             lambda: ck.comb_plain(ops, table, scalars))
-        err = max(limb_err(a, b) for pair in (zip(got, want), zip(old, want))
-                  for a, b in pair)
-        del got, old, want
+        err = max(limb_err(a, b) for a, b in zip(got, want))
+        del got, want
         cnt = CountingOps(ops)             # one madd: random P + T[0, 1]
         ck.madd_plain(cnt, jac.JPoint(*(rnd((1,) + ecount)
                                         for _ in range(3))),
                       jac.JPoint(*(a[0, 1:2] for a in table)))
-        add_ops = cnt.muls * IMAD_PER_MUL + cnt.adds * OPS_PER_ADD
+        add_ops = cnt.muls * MULADDS_PER_MONT_MUL + cnt.adds * OPS_PER_ADD
         byt = COMB_M * (32 + 3 * elem_b) + 32 * 256 * 3 * elem_b
         bnd = bound(byt, COMB_M * 32 * add_ops)
         name = f"comb_{g}"
         results[name].update(
-            shape=[COMB_M], ms=ms, loop_ms=loop_ms,
+            shape=[COMB_M], ms=ms,
             plain_ms=plain_ms, path_shape_err=err, checked_shapes=[COMB_M],
             fq_muls=cnt.muls, fq_adds=cnt.adds, **bnd)
-        log(f"[timing] {name} m={COMB_M}: kernel {ms:.4f} ms, loop of "
-            f"launches {loop_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms "
+        log(f"[timing] {name} m={COMB_M}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']}; 32 madds of {cnt.muls} Fq muls, "
-            f"{cnt.adds} Fq adds); max |kernel - plain|, |loop - plain| = "
-            f"{err}")
+            f"{cnt.adds} Fq adds); max |kernel - plain| = {err}")
 
 
 def rand_limbs(gen, shape) -> torch.Tensor:
@@ -1296,7 +1245,7 @@ def time_phase(dev, seed: int, results: dict) -> None:
                                     mm.mont_mul_plain(ctx, w, r2)))
             checked.append(w.shape[0])
         byt = 3 * 32 * n
-        ops_n = IMAD_PER_MUL * n
+        ops_n = MULADDS_PER_MONT_MUL * n
         results[name].update(shape=[n], ms=ms, plain_ms=plain_ms,
                              path_shape_err=err, checked_shapes=checked,
                              **bound(byt, ops_n))
@@ -1314,8 +1263,8 @@ def time_phase(dev, seed: int, results: dict) -> None:
     err = limb_err(got, want)
     results["montmul_add_fr"].update(
         shape=[n], ms=ms, plain_ms=plain_ms, path_shape_err=err,
-        checked_shapes=[n], **bound(3 * 32 * n,
-                                    (2 * IMAD_PER_MUL + OPS_PER_ADD) * n))
+        checked_shapes=[n],
+        **bound(3 * 32 * n, (2 * MULADDS_PER_MONT_MUL + OPS_PER_ADD) * n))
     log(f"[timing] montmul_add_fr n={n}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {results['montmul_add_fr']['bound_ms']:.4f}"
         f" ms ({results['montmul_add_fr']['bound_by']}); max |kernel - "
@@ -1341,7 +1290,8 @@ def time_phase(dev, seed: int, results: dict) -> None:
             plain(cnt, *(jac.JPoint(*(c[:1] for c in a)) for a in args))
             elem_b = 32 * (1 if g == "g1" else 2)
             byt = elem_b * 3 * (len(args) + 1) * n
-            ops_n = (cnt.muls * IMAD_PER_MUL + cnt.adds * OPS_PER_ADD) * n
+            ops_n = (cnt.muls * MULADDS_PER_MONT_MUL
+                     + cnt.adds * OPS_PER_ADD) * n
             results[name].update(shape=[n], ms=ms, plain_ms=plain_ms,
                                  path_shape_err=err, checked_shapes=[n],
                                  fq_muls=cnt.muls, fq_adds=cnt.adds,
@@ -1418,24 +1368,6 @@ DOUBLE_N_SHAPE = (16, 16)        # the former Abel step: 2^16 E_top
 HORNER_SHAPE = {"g1": (16, 16, 4), "g2": (16, 16, 1)}
 
 
-def loop_add_scan(ops, grid, collect):
-    """What add_scan replaced (the MSM's _scan_chunks before it): a
-    transposed (c, B, ...) copy, then one elementwise add launch per
-    step, each writing its prefix in place."""
-    from zksnark_tpu_torch.curve import jacobian as jac
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-
-    g = jac.JPoint(*(a.transpose(0, 1).contiguous() for a in grid))
-    acc = jac.infinity(ops, g.z.shape[1:g.z.dim() - ops.elem_ndim],
-                       g.z.device)
-    within = jac.JPoint(*(torch.empty_like(a) for a in g)) if collect \
-        else None
-    for j in range(g.z.shape[0]):
-        out = jac.JPoint(*(a[j] for a in within)) if collect else None
-        acc = ck.add(ops, acc, jac.JPoint(*(a[j] for a in g)), out=out)
-    return acc, within
-
-
 # the bucket scan at one 2^20 MSM's shape: W windows of c-bit digits
 BUCKET_SHAPE = {"windows": 16, "c": 16, "n": 1 << 20}
 NTT_LOG_N = 20                   # the prove's transforms; checked 1 .. 20
@@ -1445,81 +1377,11 @@ NTT_LOG_N = 20                   # the prove's transforms; checked 1 .. 20
 NTT_BATCH_SHAPES = [(1 << 10, 10), (1 << 8, 9), (1 << 7, 9)]
 
 
-def loop_bucket_scan(ops, pts, order, d_sorted, num_buckets, affine):
-    """What bucket_scan replaced (`ops/msm.py` before it): the sorted
-    points gathered into a (64, B, W) grid, one elementwise madd (or add)
-    launch per step writing its prefix into `within`, the permute of
-    `within` to (W, N), and the scatter of the run ends into bucket slots
-    by index_copy and index_fill.  Returns what bucket_scan returns."""
-    from zksnark_tpu_torch.curve import jacobian as jac
-    from zksnark_tpu_torch.ops import msm
-
-    W, n = order.shape
-    dev = pts.z.device
-    elem = pts.x.shape[1:]
-    comb = jac.madd if affine else jac.add
-    cdim = min(64, n)
-    b = -(-n // cdim)
-    pts_ext = msm._pad_to(ops, pts, n + 1)
-    idx = torch.cat([order, order.new_full((W, b * cdim - n), n)], dim=1)
-    idx = idx.reshape(W, b, cdim).permute(2, 1, 0).contiguous()
-    grid = msm._index(pts_ext, idx)                           # (cdim, B, W)
-    within = jac.JPoint(*(torch.empty_like(a) for a in grid))
-    acc = jac.infinity(ops, (b, W), dev)
-    for j in range(cdim):
-        acc = comb(ops, acc, msm._index(grid, j),
-                   out=msm._index(within, j))
-    del grid
-    flat_w = jac.JPoint(*(a.permute(2, 1, 0, *range(3, a.dim()))
-                          .reshape((W, b * cdim) + elem)[:, :n]
-                          for a in within))
-    del within
-    nxt = torch.cat([d_sorted[:, 1:],
-                     d_sorted.new_full((W, 1), num_buckets)], dim=1)
-    tgt = torch.where(d_sorted != nxt, d_sorted,
-                      d_sorted.new_full((), num_buckets))
-    rows = (tgt + torch.arange(W, device=dev).unsqueeze(1)
-            * (num_buckets + 1)).reshape(-1)
-    inf_b = jac.infinity(ops, (W * (num_buckets + 1),), dev)
-    slots = msm._pack(inf_b, (W * (num_buckets + 1),)).index_copy(
-        0, rows, msm._pack(flat_w, (W * n,)))
-    slots = msm._unpack(
-        slots.reshape(W, num_buckets + 1, -1)[:, :num_buckets], elem)
-    pos_chunk = (torch.arange(n, device=dev) // cdim).repeat(W)
-    chunk = torch.zeros(W * (num_buckets + 1), dtype=torch.int64,
-                        device=dev).index_copy(0, rows, pos_chunk)
-    valid = torch.zeros(W * (num_buckets + 1), dtype=torch.bool,
-                        device=dev).index_fill(0, rows, True)
-    return (slots, chunk.reshape(W, -1)[:, :num_buckets],
-            valid.reshape(W, -1)[:, :num_buckets], acc)
-
-
-def loop_ntt(domain, x):
-    """What the NTT kernel replaced (`ops/ntt.py` before it): the
-    bit-reversal gather, then per stage one K1 launch for the twiddle
-    products, the plain add and subtract, and a cat."""
-    from zksnark_tpu_torch.field.limb import add, sub
-    from zksnark_tpu_torch.ops import montmul as mm
-    from zksnark_tpu_torch.ops import ntt
-
-    ctx, log_n = domain.ctx, domain.log_n
-    n = 1 << log_n
-    x = x[ntt._bitrev(log_n, x.device)]
-    for s in range(1, log_n + 1):
-        half, m = 1 << (s - 1), 1 << s
-        xb = x.reshape(n // m, m, 8)
-        u, v = xb[:, :half], xb[:, half:]
-        w = domain.t.tw_table[0:n // 2:n // m]
-        t = mm.mont_mul(ctx, w.unsqueeze(0), v)
-        x = torch.cat([add(ctx, u, t), sub(ctx, u, t)], dim=1).reshape(n, 8)
-    return x
-
-
 def bucket_timing(ops, g, rnd_elem, gen, results) -> None:
     """The bucket scan of one 2^20 MSM (W = 16 windows of 16-bit digits,
     sorted as the MSM sorts them, over an affine table with a point at
-    infinity 1 time in 16): the kernel, its plain version and the loop it
-    replaced, on the same inputs, timed and compared."""
+    infinity 1 time in 16): the kernel and its plain version, on the same
+    inputs, timed and compared."""
     from zksnark_tpu_torch.curve import jacobian as jac
     from zksnark_tpu_torch.ops import curve_kernels as ck
 
@@ -1533,11 +1395,9 @@ def bucket_timing(ops, g, rnd_elem, gen, results) -> None:
         0, nb, (W, n), device=dev, generator=gen), dim=1)
     args = (ops, tab, order, d_sorted, nb, 64, True)
     ms, got = time_cuda(lambda: ck.bucket_scan(*args), 5)
-    loop_ms, old = time_cuda(
-        lambda: loop_bucket_scan(ops, tab, order, d_sorted, nb, True), 2)
     plain_ms, want = time_cuda(lambda: ck.bucket_scan_plain(*args), 1)
-    err = max(bucket_err(got, want), bucket_err(old, want))
-    del got, old, want
+    err = bucket_err(got, want)
+    del got, want
     cnt = CountingOps(ops)
     ck.madd_plain(cnt, *(jac.JPoint(*(a[i:i + 1] for a in tab))
                          for i in (0, 1)))
@@ -1545,16 +1405,15 @@ def bucket_timing(ops, g, rnd_elem, gen, results) -> None:
     b = n // 64
     byt = (3 * elem_b * n + 2 * 8 * W * n + W * nb * (3 * elem_b + 9)
            + 3 * elem_b * b * W)
-    bnd = bound(byt, W * n * (cnt.muls * IMAD_PER_MUL
+    bnd = bound(byt, W * n * (cnt.muls * MULADDS_PER_MONT_MUL
                               + cnt.adds * OPS_PER_ADD))
     name = f"bucket_scan_{g}"
-    results[name].update(shape=[W, c, n], ms=ms, loop_ms=loop_ms,
+    results[name].update(shape=[W, c, n], ms=ms,
                          plain_ms=plain_ms, path_shape_err=err,
                          checked_shapes=[[W, c, n]], **bnd)
-    log(f"[timing] {name} W={W} c={c} n={n}: kernel {ms:.4f} ms, loop of "
-        f"launches {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); max |kernel - "
-        f"plain|, |loop - plain| = {err}")
+    log(f"[timing] {name} W={W} c={c} n={n}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}); max |kernel - plain| = {err}")
 
 
 # the keccak path's C MSM (`examples/keccak_proof.py`, n = 2^18): its
@@ -1606,7 +1465,7 @@ def bucket_c_msm(rnd_elem, gen, results) -> None:
     b = n // 64
     byt = (3 * 32 * n + 2 * 8 * W * n + W * (1 << c) * (3 * 32 + 9)
            + 3 * 32 * b * W)
-    bnd = bound(byt, W * m * (cnt.muls * IMAD_PER_MUL
+    bnd = bound(byt, W * m * (cnt.muls * MULADDS_PER_MONT_MUL
                               + cnt.adds * OPS_PER_ADD))
     r = results["bucket_scan_g1"]
     r["c_msm"] = {"shape": [W, c, n], "digits": "window 0 in {0, 1}, "
@@ -1623,9 +1482,8 @@ def bucket_c_msm(rnd_elem, gen, results) -> None:
 
 
 def ntt_timing(x, results) -> None:
-    """One 2^20 transform (the prove's size): the kernel's passes, its
-    plain version and the per-stage loop it replaced, on the same input,
-    timed and compared."""
+    """One 2^20 transform (the prove's size): the kernel's passes and its
+    plain version, on the same input, timed and compared."""
     from zksnark_tpu_torch.field.limb import FR_CTX
     from zksnark_tpu_torch.ops import ntt
 
@@ -1633,28 +1491,25 @@ def ntt_timing(x, results) -> None:
     d = ntt.get_domain(log_n, x.device)
     tw = d.t.tw_table
     ms, got = time_cuda(lambda: ntt.ntt(d, x), 20)
-    loop_ms, old = time_cuda(lambda: loop_ntt(d, x), 3)
     plain_ms, want = time_cuda(lambda: ntt.butterflies_plain(
         FR_CTX, log_n, tw, x, d.widths), 1)
-    err = max(limb_err(got, want), limb_err(old, want))
+    err = limb_err(got, want)
     n = 1 << log_n
     bnd = bound(32 * (2 * n + n // 2),
-                log_n * (n // 2) * (IMAD_PER_MUL + 2 * OPS_PER_ADD))
-    results["ntt_fr"].update(shape=[n], ms=ms, loop_ms=loop_ms,
+                log_n * (n // 2) * (MULADDS_PER_MONT_MUL + 2 * OPS_PER_ADD))
+    results["ntt_fr"].update(shape=[n], ms=ms,
                              plain_ms=plain_ms, path_shape_err=err,
                              checked_shapes=[n], widths=list(d.widths),
                              **bnd)
     log(f"[timing] ntt_fr n=2^{log_n} passes {d.widths}: kernel {ms:.4f} ms, "
-        f"loop of stages {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); max |kernel - "
-        f"plain|, |loop - plain| = {err}")
+        f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}); max |kernel - plain| = {err}")
 
 
 def ntt_batch_timing(gen, results) -> None:
     """The batched NTT at the mesh path's four-step batches: the kernel
-    (one launch per pass for the whole batch), its plain version and the
-    loop of one transform per launch that it replaces, on the same
-    input, timed and compared."""
+    (one launch per pass for the whole batch) and its plain version, on
+    the same input, timed and compared."""
     from zksnark_tpu_torch.field.limb import FR_CTX
     from zksnark_tpu_torch.ops import ntt
 
@@ -1663,61 +1518,34 @@ def ntt_batch_timing(gen, results) -> None:
         d = ntt.get_domain(log_n, gen.device)
         x = rand_limbs(gen, (b, 1 << log_n))
         ms, got = time_cuda(lambda: ntt.ntt(d, x), 20)
-        loop_ms, old = time_cuda(
-            lambda: torch.stack([ntt.ntt(d, x[i]) for i in range(b)]), 3)
         plain_ms, want = time_cuda(lambda: ntt.butterflies_plain(
             FR_CTX, log_n, d.t.tw_table, x, d.widths), 1)
-        err = max(limb_err(got, want), limb_err(old, want))
+        err = limb_err(got, want)
         n = 1 << log_n
-        bnd = bound(32 * (2 * b * n + n // 2),
-                    b * log_n * (n // 2) * (IMAD_PER_MUL + 2 * OPS_PER_ADD))
-        per_shape.append({"shape": [b, n], "ms": ms, "loop_ms": loop_ms,
+        bnd = bound(32 * (2 * b * n + n // 2), b * log_n * (n // 2)
+                    * (MULADDS_PER_MONT_MUL + 2 * OPS_PER_ADD))
+        per_shape.append({"shape": [b, n], "ms": ms,
                           "plain_ms": plain_ms, "err": err,
                           "widths": list(d.widths), **bnd})
         log(f"[timing] ntt_fr_batched {b} x 2^{log_n} passes {d.widths}: "
-            f"kernel {ms:.4f} ms, loop of {b} launches {loop_ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']}); max |kernel - plain|, |loop - plain| = "
-            f"{err}")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); max |kernel - "
+            f"plain| = {err}")
     first = per_shape[0]
     results["ntt_fr_batched"].update(
-        shape=first["shape"], ms=first["ms"], loop_ms=first["loop_ms"],
+        shape=first["shape"], ms=first["ms"],
         plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
         bound_by=first["bound_by"], per_shape=per_shape,
         checked_shapes=[p["shape"] for p in per_shape],
         path_shape_err=max(p["err"] for p in per_shape))
 
 
-def loop_double_n(ops, p, k):
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-
-    for _ in range(k):
-        p = ck.double(ops, p)
-    return p
-
-
-def loop_horner(ops, sums, c):
-    """What horner replaced: per MSM (column of sums), c elementwise
-    doubling launches and one add launch per window."""
-    from zksnark_tpu_torch.curve import jacobian as jac
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-
-    outs = []
-    for m in range(sums.z.shape[1]):
-        acc = jac.infinity(ops, (), sums.z.device)
-        for w in range(sums.z.shape[0] - 1, -1, -1):
-            acc = loop_double_n(ops, acc, c)
-            acc = ck.add(ops, acc, jac.JPoint(*(a[w, m] for a in sums)))
-        outs.append(acc)
-    return jac.JPoint(*(torch.stack(c) for c in zip(*outs)))
-
-
 def chain_timing(ops, g, rnd_pts, results) -> None:
-    """add_scan, double_n and horner at the path's shapes: each entry, its
-    plain version and the loop of elementwise launches it replaced, all
-    on the same inputs, timed and compared.  A row's ms / plain_ms /
-    loop_ms / bound_ms are the sums over its shapes: one MSM's worth (for
-    horner, one launch's: a prove's four G1 MSMs, or its G2 MSM)."""
+    """add_scan, double_n and horner at the path's shapes: each entry and
+    its plain version, on the same inputs, timed and compared.  A row's
+    ms / plain_ms / bound_ms are the sums over its shapes: one MSM's
+    worth (for horner, one launch's: a prove's four G1 MSMs, or its G2
+    MSM)."""
     from zksnark_tpu_torch.curve import jacobian as jac
     from zksnark_tpu_torch.ops import curve_kernels as ck
 
@@ -1726,8 +1554,8 @@ def chain_timing(ops, g, rnd_pts, results) -> None:
     one = rnd_pts(1)
     ck.add_plain(cnt_add, one, rnd_pts(1))
     ck.double_plain(cnt_dbl, one)
-    add_ops = cnt_add.muls * IMAD_PER_MUL + cnt_add.adds * OPS_PER_ADD
-    dbl_ops = cnt_dbl.muls * IMAD_PER_MUL + cnt_dbl.adds * OPS_PER_ADD
+    add_ops = cnt_add.muls * MULADDS_PER_MONT_MUL + cnt_add.adds * OPS_PER_ADD
+    dbl_ops = cnt_dbl.muls * MULADDS_PER_MONT_MUL + cnt_dbl.adds * OPS_PER_ADD
 
     def err_of(a, b):
         return max(limb_err(u, v) for u, v in zip(a, b))
@@ -1736,35 +1564,29 @@ def chain_timing(ops, g, rnd_pts, results) -> None:
         grid = jac.JPoint(*(a.reshape((b, c, r) + a.shape[1:])
                             for a in rnd_pts(b * c * r)))
         ms, got = time_cuda(lambda: ck.add_scan(ops, grid, collect), 10)
-        loop_ms, old = time_cuda(lambda: loop_add_scan(ops, grid, collect), 3)
         plain_ms, want = time_cuda(
             lambda: ck.add_scan_plain(ops, grid, collect), 1)
-        err = max(err_of(got[0], want[0]), err_of(old[0], want[0]))
+        err = err_of(got[0], want[0])
         if collect:
-            err = max(err, err_of(got[1], want[1]), err_of(
-                [a.transpose(0, 1) for a in old[1]], want[1]))
+            err = max(err, err_of(got[1], want[1]))
         lanes = b * r
         byt = elem_b * 3 * (lanes * c + lanes + (lanes * c if collect else 0))
-        return ([b, c, r, int(collect)], ms, loop_ms, plain_ms, err,
+        return ([b, c, r, int(collect)], ms, plain_ms, err,
                 bound(byt, lanes * c * add_ops))
 
     def double_n_case(n, k):
         p = rnd_pts(n)
         ms, got = time_cuda(lambda: ck.double_n(ops, p, k), 20)
-        loop_ms, old = time_cuda(lambda: loop_double_n(ops, p, k), 3)
         plain_ms, want = time_cuda(lambda: ck.double_n_plain(ops, p, k), 1)
-        err = max(err_of(got, want), err_of(old, want))
-        return ([n, k], ms, loop_ms, plain_ms, err,
+        return ([n, k], ms, plain_ms, err_of(got, want),
                 bound(elem_b * 3 * 2 * n, n * k * dbl_ops))
 
     def horner_case(w, c, m):
         sums = jac.JPoint(*(a.reshape((w, m) + a.shape[1:])
                             for a in rnd_pts(w * m)))
         ms, got = time_cuda(lambda: ck.horner(ops, sums, c), 20)
-        loop_ms, old = time_cuda(lambda: loop_horner(ops, sums, c), 3)
         plain_ms, want = time_cuda(lambda: ck.horner_plain(ops, sums, c), 1)
-        err = max(err_of(got, want), err_of(old, want))
-        return ([w, c, m], ms, loop_ms, plain_ms, err,
+        return ([w, c, m], ms, plain_ms, err_of(got, want),
                 bound(elem_b * 3 * (w + 1) * m,
                       m * w * (c * dbl_ops + add_ops)))
 
@@ -1785,27 +1607,24 @@ def chain_timing(ops, g, rnd_pts, results) -> None:
     for op, rows in cases.items():
         name = f"{op}_{g}"
         per_shape = []
-        for shape, ms, loop_ms, plain_ms, err, bnd in rows:
-            per_shape.append({"shape": shape, "ms": ms, "loop_ms": loop_ms,
+        for shape, ms, plain_ms, err, bnd in rows:
+            per_shape.append({"shape": shape, "ms": ms,
                               "plain_ms": plain_ms, "err": err, **bnd})
-            log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, loop of "
-                f"launches {loop_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}); max |kernel "
-                f"- plain|, |loop - plain| = {err}")
+            log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.5f} ms "
+                f"({bnd['bound_by']}); max |kernel - plain| = {err}")
         tb = sum(p["bound_ms"] for p in per_shape)
         by = max(per_shape, key=lambda p: p["bound_ms"])["bound_by"]
         results[name].update(
             shape=[p["shape"] for p in per_shape],
             ms=sum(p["ms"] for p in per_shape),
-            loop_ms=sum(p["loop_ms"] for p in per_shape),
             plain_ms=sum(p["plain_ms"] for p in per_shape),
             path_shape_err=max(p["err"] for p in per_shape),
             checked_shapes=[p["shape"] for p in per_shape],
             bound_ms=tb, bound_by=by, per_shape=per_shape,
             thread_add_us=add_us, thread_double_us=dbl_us)
         log(f"[timing] {name}, summed over its shapes: kernel "
-            f"{results[name]['ms']:.4f} ms, loop of launches "
-            f"{results[name]['loop_ms']:.3f} ms, bound {tb:.5f} ms")
+            f"{results[name]['ms']:.4f} ms, bound {tb:.5f} ms")
 
 
 # the MSM's tail at one 2^20 MSM's shapes (c = 16, W = 16 windows, 2^14
@@ -1816,73 +1635,6 @@ def chain_timing(ops, g, rnd_pts, results) -> None:
 TAIL_SHAPE = {"windows": 16, "c": 16, "n": 1 << 20}
 FIXUP_SHAPES = [(256, 64, 16), (4, 64, 16)]
 HS_SHAPE = (4, 16)
-
-
-def loop_bucket_ends(ops, carry, ends_w, bucket_chunk, valid):
-    """What the bucket ends' add_gather replaced (`ops/msm.py` before
-    it): the carry rows packed and gathered by chunk, the elementwise add,
-    the ends packed and gathered by the last valid bucket, the select of
-    infinity before the first, and the transposed copy the tree sum
-    took.  Returns the (num_buckets, W) filled ends."""
-    from zksnark_tpu_torch.curve import jacobian as jac
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-    from zksnark_tpu_torch.ops import msm
-
-    W, nb = valid.shape
-    b = carry.z.shape[0]
-    dev = valid.device
-    elem = carry.x.shape[2:]
-    carry_rows = msm._pack(carry, (b * W,))
-    ends_c = msm._unpack(carry_rows[bucket_chunk * W + torch.arange(
-        W, device=dev).unsqueeze(1)], elem)
-    ends = ck.add(ops, ends_c, ends_w)
-    src = torch.where(valid, torch.arange(nb, device=dev),
-                      torch.full((), -1, device=dev, dtype=torch.int64))
-    last_valid = torch.cummax(src, dim=1).values
-    filled = msm._unpack(torch.gather(
-        msm._pack(ends, (W, nb)), 1,
-        last_valid.clamp(min=0).unsqueeze(-1).expand(
-            -1, -1, 3 * ends.x[0, 0].numel())), elem)
-    filled = jac.select(ops, last_valid < 0,
-                        jac.infinity(ops, (W, nb), dev), filled)
-    return jac.JPoint(*(a.transpose(0, 1).contiguous() for a in filled))
-
-
-def loop_fixup(ops, carry, within):
-    """What the fix-up's add_gather replaced: the (b, r) carries
-    broadcast over the (b, c, r) grid and added elementwise."""
-    from zksnark_tpu_torch.curve import jacobian as jac
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-
-    full = ck.add(ops, jac.JPoint(*(a.unsqueeze(1) for a in carry)), within)
-    return jac.JPoint(*(a.reshape((-1,) + a.shape[2:]) for a in full))
-
-
-def loop_hs_scan(ops, pts):
-    """What the Hillis-Steele rounds' add_gather replaced: each round's
-    partner concatenated from infinity and the shifted rows, then the
-    elementwise add."""
-    from zksnark_tpu_torch.curve import jacobian as jac
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-    from zksnark_tpu_torch.ops import msm
-
-    size = pts.z.shape[0]
-    rest = msm._batch_shape(ops, pts)[1:]
-    for i in range((size - 1).bit_length()):
-        shift = 1 << i
-        inf = jac.infinity(ops, (shift,) + rest, pts.z.device)
-        partner = msm._cat(inf, msm._index(pts, slice(0, size - shift)))
-        pts = ck.add(ops, partner, pts)
-    return pts
-
-
-def loop_abel(ops, c, t, r, k):
-    """What abel replaced: add, double_n, jacobian.neg, add."""
-    from zksnark_tpu_torch.curve import jacobian as jac
-    from zksnark_tpu_torch.ops import curve_kernels as ck
-
-    return ck.add(ops, ck.double_n(ops, ck.add(ops, c, t), k),
-                  jac.neg(ops, r))
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -1896,15 +1648,14 @@ def device_ms(fn, iters: int = 20) -> float:
 
 
 def tail_timing(ops, g, rnd_pts, gen, results) -> None:
-    """add_gather and abel at one 2^20 MSM's shapes: each entry, its
-    plain version and the composition it replaced (kept as the loop_*
-    functions), on the same inputs, timed and compared; device time from
-    the profiler beside the CUDA events at the small shapes.  The bucket
-    ends are those of a real bucket scan of 2^20 points (W = 16, c = 16;
-    window 0's digits all >= 2^15, so its first 2^15 buckets are empty
-    ahead of its first run).  add_gather's ms / loop_ms / plain_ms /
-    bound_ms sum one MSM's launches: the ends, the two fix-ups and the
-    two rounds."""
+    """add_gather and abel at one 2^20 MSM's shapes: each entry and its
+    plain version, on the same inputs, timed and compared; device time
+    from the profiler beside the CUDA events at the small shapes.  The
+    bucket ends are those of a real bucket scan of 2^20 points (W = 16,
+    c = 16; window 0's digits all >= 2^15, so its first 2^15 buckets are
+    empty ahead of its first run).  add_gather's ms / plain_ms / bound_ms
+    sum one MSM's launches: the ends, the two fix-ups and the two
+    rounds."""
     from zksnark_tpu_torch.curve import jacobian as jac
     from zksnark_tpu_torch.ops import curve_kernels as ck
     from zksnark_tpu_torch.ops import msm
@@ -1916,8 +1667,8 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
     one = rnd_pts(1)
     ck.add_plain(cnt_add, one, rnd_pts(1))
     ck.double_plain(cnt_dbl, one)
-    add_ops = cnt_add.muls * IMAD_PER_MUL + cnt_add.adds * OPS_PER_ADD
-    dbl_ops = cnt_dbl.muls * IMAD_PER_MUL + cnt_dbl.adds * OPS_PER_ADD
+    add_ops = cnt_add.muls * MULADDS_PER_MONT_MUL + cnt_add.adds * OPS_PER_ADD
+    dbl_ops = cnt_dbl.muls * MULADDS_PER_MONT_MUL + cnt_dbl.adds * OPS_PER_ADD
     add_us = results[f"add_scan_{g}"]["thread_add_us"]
     dbl_us = results[f"add_scan_{g}"]["thread_double_us"]
 
@@ -1941,16 +1692,13 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
         byt = (flat(p).z.shape[0] + flat(q).z.shape[0] + n) * pt_b + 8 * n
         return bound(byt, formula_lanes(p, pi, q, qi) * add_ops)
 
-    def row(shape, kern, loop, plain, bnd, iters, small=False):
+    def row(shape, kern, plain, bnd, iters, small=False):
         ms, got = time_cuda(kern, iters)
-        loop_ms, old = time_cuda(loop, max(2, iters // 5))
         plain_ms, want = time_cuda(plain, 1)
-        err = max(err_of(got, want), err_of(old, want))
-        out = {"shape": shape, "ms": ms, "loop_ms": loop_ms,
-               "plain_ms": plain_ms, "err": err, **bnd}
+        out = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+               "err": err_of(got, want), **bnd}
         if small:
             out["device_ms"] = device_ms(kern)
-            out["loop_device_ms"] = device_ms(loop)
         return out
 
     # the bucket ends
@@ -1972,24 +1720,8 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
     pi, qi = msm._fill_indices(chunk, valid)
     leading = bool((pi[:nb // 2, 0] < 0).all())
     ends = row([nb, W], lambda: ck.add_gather(ops, carry, pi, ends_w, qi),
-               lambda: loop_bucket_ends(ops, carry, ends_w, chunk, valid),
                lambda: ck.add_gather_plain(ops, carry, pi, ends_w, qi),
                gather_bound(carry, pi, ends_w, qi), 10)
-
-    def ends_with_indices():
-        fpi, fqi = msm._fill_indices(chunk, valid)
-        return ck.add_gather(ops, carry, fpi, ends_w, fqi)
-
-    ends["with_indices_ms"] = time_cuda(ends_with_indices, 10)[0]
-    # the same adds on operands gathered beforehand (materialized, read
-    # in order), as the elementwise add read them
-    seq = [ck._take(ops, t, ix)
-           for t, ix in ((carry, pi), (ends_w, qi))]
-    ident = torch.arange(pi.numel(), dtype=torch.int32,
-                         device=dev).reshape(pi.shape)
-    ends["materialized_ms"] = time_cuda(lambda: ck.add_gather(
-        ops, seq[0], ident, seq[1], ident), 10)[0]
-    del seq
     del ends_w, chunk, valid, totals, carry, pi, qi
     per_shape = [ends]
 
@@ -2004,7 +1736,6 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
         fpi = i // (steps * r) * r + i % r
         per_shape.append(row(
             [bc, steps, r], lambda: ck.add_gather(ops, carry, fpi, within, i),
-            lambda: loop_fixup(ops, carry, within),
             lambda: ck.add_gather_plain(ops, carry, fpi, within, i),
             gather_bound(carry, fpi, within, i), 20,
             small=bc * steps * r <= 4096))
@@ -2026,8 +1757,7 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
             return msm._hs_scan(ops, hs)
 
     per_shape.append(row(
-        [size, r, rounds], lambda: msm._hs_scan(ops, hs),
-        lambda: loop_hs_scan(ops, hs), hs_plain,
+        [size, r, rounds], lambda: msm._hs_scan(ops, hs), hs_plain,
         {"bound_ms": sum(x["bound_ms"] for x in hb),
          "bound_by": hb[0]["bound_by"]}, 20, small=True))
     per_shape[-1]["latency_bound_ms"] = rounds * add_us / 1e3
@@ -2036,7 +1766,6 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
     k = c
     three = [rnd_pts(W) for _ in range(3)]
     abel = row([W, k], lambda: ck.abel(ops, *three, k),
-               lambda: loop_abel(ops, *three, k),
                lambda: ck.abel_plain(ops, *three, k),
                bound(4 * W * pt_b, W * (2 * add_ops + k * dbl_ops)), 20,
                small=True)
@@ -2050,34 +1779,26 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
             log(f"[timing] {name} {p['shape']}: kernel {p['ms']:.4f} ms"
                 + (f" (device {p['device_ms']:.4f})" if "device_ms" in p
                    else "")
-                + f", loop of launches {p['loop_ms']:.3f} ms"
-                + (f" (device {p['loop_device_ms']:.4f})"
-                   if "loop_device_ms" in p else "")
                 + f", plain {p['plain_ms']:.3f} ms, bound "
                 f"{p['bound_ms']:.5f} ms ({p['bound_by']})"
                 + (f", one thread's chain {p['latency_bound_ms']:.4f} ms"
                    if "latency_bound_ms" in p else "")
-                + f"; max |kernel - plain|, |loop - plain| = {p['err']}")
+                + f"; max |kernel - plain| = {p['err']}")
         by = max(rows, key=lambda p: p["bound_ms"])["bound_by"]
         results[name].update(
             shape=[p["shape"] for p in rows],
             ms=sum(p["ms"] for p in rows),
-            loop_ms=sum(p["loop_ms"] for p in rows),
             plain_ms=sum(p["plain_ms"] for p in rows),
             bound_ms=sum(p["bound_ms"] for p in rows), bound_by=by,
             path_shape_err=max(p["err"] for p in rows),
             checked_shapes=[p["shape"] for p in rows], per_shape=rows,
             **extra)
         log(f"[timing] {name}, summed over its shapes: kernel "
-            f"{results[name]['ms']:.4f} ms, loop of launches "
-            f"{results[name]['loop_ms']:.3f} ms, bound "
+            f"{results[name]['ms']:.4f} ms, bound "
             f"{results[name]['bound_ms']:.5f} ms")
     if not leading:
         raise SystemExit("tail_timing: window 0's leading buckets are not "
                          "empty")
-    log(f"[timing] add_gather_{g} bucket ends with their index glue "
-        f"(_fill_indices): {ends['with_indices_ms']:.4f} ms; the same adds "
-        f"on operands gathered beforehand: {ends['materialized_ms']:.4f} ms")
 
 
 def ptxas_summary(log_text: str) -> list:
@@ -2120,8 +1841,8 @@ def ptxas_summary(log_text: str) -> list:
 
 
 def bound(nbytes: int, nops: int) -> dict:
-    t_b = nbytes / PEAK_BYTES_S * 1e3
-    t_o = nops / PEAK_IMAD_S * 1e3
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = nops / INT32_MULADD_PER_S * 1e3
     return {"bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
@@ -3345,7 +3066,7 @@ def wide_phase(dev, seed: int, results: dict) -> None:
             wv, idx, val, ptr_t, rows, torch.zeros_like(out)))
         err = max(err, limb_err(got, ref))
         nz, nr = idx.shape[0], rows.shape[0]
-        bnd = bound(nz * (4 + 64) + nr * 32, nz * (IMAD_PER_MUL + 16))
+        bnd = bound(nz * (4 + 64) + nr * 32, nz * (MULADDS_PER_MONT_MUL + 16))
         per_shape[name] = {"rows": nr, "nnz": nz, "group": g, "ms": ms,
                            "plain_ms": plain_ms, **bnd}
         log(f"[wide] {name}: {nr} rows, {nz} non-zeros, g = {g}: "
@@ -3457,7 +3178,7 @@ def main(argv=None) -> int:
             "launches_per_keccak_prove":
                 keccak["proves"][-1]["launches"][name],
             **({"c_msm": r["c_msm"]} if "c_msm" in r else {}),
-            **{k: r[k] for k in ("loop_ms", "chain_ms") if k in r},
+            **({"chain_ms": r["chain_ms"]} if "chain_ms" in r else {}),
             **({"per_shape": r["per_shape"]} if "per_shape" in r else {}),
         })
     log(f"[path] n=2^{log_n}: setup {path['setup_s']:.2f} s (phases "
