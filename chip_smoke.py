@@ -10,8 +10,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    `zksnark_tpu_torch/csrc/` (one process per source, in parallel).
 2. kernels: each kernel entry — K1 montmul (Fr, Fq); K2 madd, K3 add,
    K4 double (G1, G2); the MSM's chains K2 bucket_scan, K3 add_scan, K4
-   double_n and horner (G1, G2); the MSM's tail K3 add_gather and K4
-   abel (G1, G2); the NTT passes; setup's K1 mont_scan
+   double_n and horner (G1, G2); the MSM's tail K3 block_scan,
+   add_gather and K4 abel (G1, G2); the NTT passes; setup's K1 mont_scan
    and normalize (Fq, Fq2: batch_normalize's prefix products and its
    pass over the points) and its chain K2 comb (G1, G2: the fixed-base
    comb encryption) — runs on 2^16 random inputs plus the edge cases
@@ -40,9 +40,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    events: the chains, the bucket scan, the NTT, the scan (every level
    of a 2^20 prefix product, and the whole product against itself on
    the plain scan), normalize (2^20 points), the comb (2^20 scalars, G1
-   and G2) and the MSM's tail (the bucket ends of a real 2^20 bucket
-   scan, the 2^18 and 4096 fix-ups, the 64-point rounds, Abel at W =
-   16; with the profiler's device time at the small shapes).  The G1
+   and G2) and the MSM's tail (every level of the block scans of the
+   chunk carries and of the tree sum at 2^20 and 2^18 points, the
+   bucket ends of a real 2^20 bucket scan, the carries' fix-ups at 2^20
+   and 2^18, Abel at W = 16; with the profiler's device time at the
+   small shapes).  The G1
    bucket scan is also checked at the keccak path's C MSM digit columns
    (W = 16, c = 16, 2^18 positions, window 0 in {0, 1}, windows 1-15
    all 0).
@@ -62,11 +64,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the scan `scan_launches(n)` times for each of a set's two prefix
    products and the elementwise madd and Fq product not at all; each
    prove (`prove_expect`) must launch per MSM (four G1, one G2) the
-   bucket scan once, add_gather `gather_launches(m)` times (6 at m =
-   2^20 + 3 and 2^20 + 2, the blinding's points appended: 24 G1, 6 G2)
-   and abel once, the elementwise madd, add and
-   double_n not at all, and the NTT kernel once per pass of its seven
-   transforms.  A second setup
+   bucket scan once, block_scan and add_gather as `tail_launches(m)`
+   says (4 and 2 at m = 2^20 + 3 and 2^20 + 2, the blinding's points
+   appended: 16 and 8 G1, 4 and 2 G2) and abel once, the elementwise
+   madd, add and double_n and add_scan not at all, and the NTT kernel
+   once per pass of its seven transforms.  A second setup
    is then timed phase by phase (scalars, host sigma points, comb,
    normalize) and must make the same CRS.
 5. keccak: the example `zksnark_tpu_torch.examples.keccak_proof` at full
@@ -114,10 +116,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    of `[path]` at 2^20, two more made here at 2^18), verify on [x] and
    be rejected on [x + 1]; each prove must launch the batched NTT once
    per pass of its seven four-step transforms (both halves), the bucket
-   scan once per MSM, add_gather `gather_launches` times per MSM over
-   a rank's n / world points, 3 more in A's and C's, 2 more in B's (the
-   blinding's), and abel once per MSM, and no
-   single-transform NTT or elementwise madd, add or double_n,
+   scan once per MSM, block_scan and add_gather as `tail_launches` says
+   per MSM over a rank's n / world points, 3 more in A's and C's, 2 more
+   in B's (the blinding's), with one block scan more per MSM where ranks'
+   partial sums are summed, and abel once per MSM, and no
+   single-transform NTT or elementwise madd, add, double_n or add_scan,
    and setup and the proves together every kernel entry of the mesh
    path (all but the elementwise double, madd, add, double_n and Fq
    product and the single-transform NTT).
@@ -182,6 +185,7 @@ TPU_KERNELS = {
     "comb": "zksnark_tpu/ops/curve_pallas.py:291",
     "add_gather": "zksnark_tpu/ops/curve_pallas.py:281",
     "abel": "zksnark_tpu/ops/curve_pallas.py:301",
+    "block_scan": "zksnark_tpu/ops/curve_pallas.py:281",
 }
 SOURCES = {
     "montmul": "zksnark_tpu_torch/csrc/montmul.cu",
@@ -200,6 +204,7 @@ SOURCES = {
     "comb": "zksnark_tpu_torch/csrc/point_comb.cu",
     "add_gather": "zksnark_tpu_torch/csrc/point_tail.cu",
     "abel": "zksnark_tpu_torch/csrc/point_tail.cu",
+    "block_scan": "zksnark_tpu_torch/csrc/point_tail.cu",
 }
 # the elementwise double, madd, add, double_n and Fq product have no
 # launch on the main path: the MSM's doubling chains run in horner and
@@ -207,10 +212,12 @@ SOURCES = {
 # and abel, setup's mixed adds in the comb, batch_normalize's products
 # in mont_scan and normalize; the batched NTT runs on the mesh path only,
 # where every transform is batched; the wide rows' kernel only where a
-# circuit has rows wider than its ELL (none of the circuits here)
+# circuit has rows wider than its ELL (none of the circuits here); the
+# chunked add scan neither: the MSM's carries and tree sum run as block
+# scans
 ELEMENTWISE = ("double_g1", "double_g2", "madd_g1", "madd_g2", "add_g1",
                "add_g2", "double_n_g1", "double_n_g2", "montmul_fq",
-               "wide_rows_fr")
+               "wide_rows_fr", "add_scan_g1", "add_scan_g2")
 OFF_PATH = ELEMENTWISE + ("ntt_fr_batched",)
 MESH_OFF_PATH = ELEMENTWISE + ("ntt_fr",)
 MESH_ONLY = ("ntt_fr_batched",)
@@ -510,6 +517,59 @@ def kernel_phase(dev, seed: int, n_rand: int, results: dict) -> None:
         log(f"[kernels] add_scan_{g}: {n_pts} points in lanes of 16 and 4 "
             f"steps, collect on and off, max |kernel - plain| = {err}, edge "
             f"lanes vs host curve {'ok' if sem else 'FAIL'}")
+
+        # block_scan: the random points (a step at infinity 1 time in 16)
+        # as (rows, 16) columns, whole and less 3 rows, at a block of one
+        # thread, 4 x 2, 64 x 4 and the chooser's shape; edge columns of
+        # real points (4 threads x 2 steps): A + A doubles in a thread's
+        # walk, C + (-C) cancels, two threads' equal sums (D and D) double
+        # in the first round, a column all at infinity, and a column whose
+        # two blocks are equal (its block totals are); collect on and off
+        cols = jac.JPoint(*(c.reshape((n_rand // 16, 16) + c.shape[1:])
+                            for c in P_inf))
+        col0 = [A, A, C, hneg(C), None, D, None, D] * 2
+        col2 = [B, C, D, A, hadd(A, B), None, C, B] * 2
+        host_cols = [[a, None, b] for a, b in zip(col0, col2)]
+        edge_cols = scaled(pts([h for row in host_cols for h in row]), 3)
+        edge_cols = jac.JPoint(*(c.reshape((16, 3) + c.shape[1:])
+                                 for c in edge_cols))
+        err, sem = 0, True
+        for grid, shapes in (
+                (cols, [(1, 1), (4, 2), (64, 4),
+                        ck.block_scan_shape(cols.z.shape[0], 16)]),
+                (jac.JPoint(*(c[:-3] for c in cols)), [(64, 4)]),
+                (edge_cols, [(4, 2)])):
+            for t, st in shapes:
+                for collect in (True, False):
+                    got = ck.block_scan(ops, grid, collect, t, st)
+                    want = ck.block_scan_plain(ops, grid, collect, t, st)
+                    torch.cuda.synchronize()
+                    err = max(err, err_of(got[0], want[0]))
+                    if collect:
+                        err = max(err, err_of(got[1], want[1]))
+        run = []
+        acc = [None] * 3
+        for i, row in enumerate(host_cols):
+            if i % 8 == 0:
+                acc = [None] * 3
+            acc = [hadd(a, h) for a, h in zip(acc, row)]
+            run.append(acc)
+        totals, within = ck.block_scan(ops, edge_cols, True, 4, 2)
+        sem = affine(jac.JPoint(*(c.reshape((48,) + c.shape[2:])
+                                  for c in within))) == [
+            h for row in run for h in row]
+        sem &= affine(jac.JPoint(*(c.reshape((6,) + c.shape[2:])
+                                   for c in totals))) == [
+            h for row in (run[7], run[15]) for h in row]
+        n_pts = 2 * cols.z.numel() // cols.z[0, 0].numel() + 48
+        results[f"block_scan_{g}"] = {
+            "max_abs_err": err, "bit_exact": err == 0, "host_edge_ok": sem,
+            "n_checked": n_pts}
+        log(f"[kernels] block_scan_{g}: {cols.z.shape[0]} and "
+            f"{cols.z.shape[0] - 3} rows x 16 columns at 1 x 1, 4 x 2, 64 x 4 "
+            f"and the chooser's shape, and 16 x 3 edge columns, collect on "
+            f"and off, max |kernel - plain| = {err}, edge columns vs host "
+            f"curve {'ok' if sem else 'FAIL'}")
 
         # double_n: k = 0, 1, 16 on random points and on A, 5C, inf
         pd = cat(P_rand, pts([A]), scaled(pts([C]), 5), pts([None]))
@@ -1352,14 +1412,15 @@ def time_phase(dev, seed: int, results: dict) -> None:
 PATH_SHAPES = {"montmul_fr": 1 << 20, "montmul_add_fr": 1 << 20,
                "montmul_fq": 1 << 14,
                "madd": 1 << 20, "add": 1 << 20, "double": 16}
-# the elementwise add's former shapes in one 2^20 MSM (c = 16), now run
-# by add_gather and abel: bucket ends, the two chunk-carry fix-ups, the
-# small Hillis-Steele rounds, E_top and the Abel subtraction (2^20, 2^18,
-# 4096, 64 twice, 16 twice)
+# the elementwise add's former shapes in one 2^20 MSM (c = 16), run by
+# add_gather and abel since, and by the block scans' fix-ups: bucket
+# ends, the two chunk-carry fix-ups, the small Hillis-Steele rounds,
+# E_top and the Abel subtraction (2^20, 2^18, 4096, 64 twice, 16 twice)
 ADD_SHAPES = [1 << 20, 1 << 18, 4096, 64, 16]
 # the chains at the shapes of one 2^20 MSM (c = 16: W = 16 windows, 2^14
 # chunks of 64 sorted points per window): (chunks, steps, lanes per chunk,
 # collect) of the two chunk-carry scans and the three tree-sum levels
+# that add_scan ran, off the prove path since the block scans
 SCAN_SHAPES = [(256, 64, 16, True), (4, 64, 16, True), (1024, 64, 16, False),
                (16, 64, 16, False), (1, 16, 16, False)]
 DOUBLE_N_SHAPE = (16, 16)        # the former Abel step: 2^16 E_top
@@ -1628,13 +1689,12 @@ def chain_timing(ops, g, rnd_pts, results) -> None:
 
 
 # the MSM's tail at one 2^20 MSM's shapes (c = 16, W = 16 windows, 2^14
-# chunks a window): the bucket ends of a real bucket scan, the chunk
-# carries' fix-ups ((chunks, steps, lanes) grids: 2^18 and 4096
-# positions), their Hillis-Steele rounds (4 rows x 16 windows: two
-# rounds of 64 points) and Abel (16 windows, 16 doublings)
+# chunks of 64 a window) and at 2^18 (2^12 chunks): the bucket ends of a
+# real bucket scan, every level of the block scans of the chunk carries
+# and of the tree sum (2^16 buckets a window at both sizes) with the
+# carries' fix-ups, and Abel (16 windows, 16 doublings)
 TAIL_SHAPE = {"windows": 16, "c": 16, "n": 1 << 20}
-FIXUP_SHAPES = [(256, 64, 16), (4, 64, 16)]
-HS_SHAPE = (4, 16)
+TAIL_CHUNKS = {"2^20": 1 << 14, "2^18": 1 << 12}
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -1648,14 +1708,16 @@ def device_ms(fn, iters: int = 20) -> float:
 
 
 def tail_timing(ops, g, rnd_pts, gen, results) -> None:
-    """add_gather and abel at one 2^20 MSM's shapes: each entry and its
-    plain version, on the same inputs, timed and compared; device time
-    from the profiler beside the CUDA events at the small shapes.  The
+    """block_scan, add_gather and abel at the tail's shapes: each entry
+    and its plain version, on the same inputs, timed and compared; device
+    time from the profiler beside the CUDA events at the small shapes.
+    The block scans run every level of the chunk carries' prefix scan and
+    of the tree sum at the chooser's shapes, each level on the totals of
+    the one before; the carries' fix-up adds each block's carry.  The
     bucket ends are those of a real bucket scan of 2^20 points (W = 16,
     c = 16; window 0's digits all >= 2^15, so its first 2^15 buckets are
-    empty ahead of its first run).  add_gather's ms / plain_ms / bound_ms
-    sum one MSM's launches: the ends, the two fix-ups and the two
-    rounds."""
+    empty ahead of its first run).  An entry's ms / plain_ms / bound_ms /
+    launches sum one 2^20 MSM's launches (`*_2p18`: one 2^18 MSM's)."""
     from zksnark_tpu_torch.curve import jacobian as jac
     from zksnark_tpu_torch.ops import curve_kernels as ck
     from zksnark_tpu_torch.ops import msm
@@ -1673,6 +1735,8 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
     dbl_us = results[f"add_scan_{g}"]["thread_double_us"]
 
     def err_of(a, b):
+        if a is None or b is None:
+            return 0 if a is b else 1
         return max(limb_err(u, v) for u, v in zip(a, b))
 
     def flat(p):
@@ -1692,11 +1756,13 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
         byt = (flat(p).z.shape[0] + flat(q).z.shape[0] + n) * pt_b + 8 * n
         return bound(byt, formula_lanes(p, pi, q, qi) * add_ops)
 
-    def row(shape, kern, plain, bnd, iters, small=False):
+    def row(shape, kern, plain, bnd, iters, small=False, pair=False):
         ms, got = time_cuda(kern, iters)
         plain_ms, want = time_cuda(plain, 1)
-        out = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
-               "err": err_of(got, want), **bnd}
+        err = (max(err_of(got[0], want[0]), err_of(got[1], want[1]))
+               if pair else err_of(got, want))
+        out = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "err": err,
+               **bnd}
         if small:
             out["device_ms"] = device_ms(kern)
         return out
@@ -1722,45 +1788,50 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
     ends = row([nb, W], lambda: ck.add_gather(ops, carry, pi, ends_w, qi),
                lambda: ck.add_gather_plain(ops, carry, pi, ends_w, qi),
                gather_bound(carry, pi, ends_w, qi), 10)
+    ends["msm"] = "2^20"
     del ends_w, chunk, valid, totals, carry, pi, qi
-    per_shape = [ends]
+    gathers, scans = [ends], []
 
-    # the chunk carries' fix-ups
-    for bc, steps, r in FIXUP_SHAPES:
-        carry = jac.JPoint(*(a.reshape((bc, r) + a.shape[1:])
-                             for a in rnd_pts(bc * r)))
-        within = jac.JPoint(*(a.reshape((bc, steps, r) + a.shape[1:])
-                              for a in rnd_pts(bc * steps * r)))
-        i = torch.arange(bc * steps * r, dtype=torch.int32,
-                         device=dev).reshape(bc * steps, r)
-        fpi = i // (steps * r) * r + i % r
-        per_shape.append(row(
-            [bc, steps, r], lambda: ck.add_gather(ops, carry, fpi, within, i),
-            lambda: ck.add_gather_plain(ops, carry, fpi, within, i),
-            gather_bound(carry, fpi, within, i), 20,
-            small=bc * steps * r <= 4096))
-
-    # the carries' Hillis-Steele rounds: two launches, row 0 at infinity
-    size, r = HS_SHAPE
-    hs = rnd_pts(size * r)
-    hs = jac.JPoint(*(a.reshape((size, r) + a.shape[1:]) for a in hs))
-    hs.z[0] = 0
-    rounds = (size - 1).bit_length()
-    hb = [gather_bound(hs, torch.arange(size * r, dtype=torch.int32,
-                                        device=dev) - (r << k),
-                       hs, torch.arange(size * r, dtype=torch.int32,
-                                        device=dev))
-          for k in range(rounds)]
-
-    def hs_plain():
-        with point_ops_plain():
-            return msm._hs_scan(ops, hs)
-
-    per_shape.append(row(
-        [size, r, rounds], lambda: msm._hs_scan(ops, hs), hs_plain,
-        {"bound_ms": sum(x["bound_ms"] for x in hb),
-         "bound_by": hb[0]["bound_by"]}, 20, small=True))
-    per_shape[-1]["latency_bound_ms"] = rounds * add_us / 1e3
+    # the block scans, level by level, and the carries' fix-ups
+    for label, rows, collect in (("2^20", TAIL_CHUNKS["2^20"], True),
+                                 ("2^18", TAIL_CHUNKS["2^18"], True),
+                                 ("2^20", nb, False)):
+        level = rnd_pts(rows * W)
+        level = jac.JPoint(*(a.reshape((rows, W) + a.shape[1:])
+                             for a in level))
+        while level.z.shape[0] > 1:
+            m = level.z.shape[0]
+            t, st = ck.block_scan_shape(m, W)
+            blocks = -(-m // (t * st))
+            byt = (m * W * (2 if collect else 1) + blocks * W) * pt_b
+            scans.append(row(
+                [m, W, t, st, int(collect)],
+                lambda: ck.block_scan(ops, level, collect, t, st),
+                lambda: ck.block_scan_plain(ops, level, collect, t, st),
+                bound(byt, m * W * add_ops), 10, small=m * W <= 4096,
+                pair=True))
+            scans[-1]["msm"] = label
+            scans[-1]["latency_bound_ms"] = (
+                (2 * st - 1 if collect else st) + t.bit_length() - 1
+            ) * add_us / 1e3
+            tot, within = ck.block_scan(ops, level, collect, t, st)
+            if collect and blocks > 1:
+                bc = msm._prefix_scan(ops, tot)
+                i = msm._positions(ops, level, m)
+                fpi = (i // (t * st * W) - 1) * W + i % W
+                gathers.append(row(
+                    [m, W, t * st],
+                    lambda: ck.add_gather(ops, bc, fpi, within, i),
+                    lambda: ck.add_gather_plain(ops, bc, fpi, within, i),
+                    gather_bound(bc, fpi, within, i), 10,
+                    small=m * W <= 4096))
+                gathers[-1]["msm"] = label
+            level = tot
+            del within
+        if not collect:
+            # the tree sum runs the same levels at 2^18
+            scans += [dict(r, msm="2^18") for r in scans
+                      if r["msm"] == "2^20" and not r["shape"][4]]
 
     # Abel
     k = c
@@ -1770,13 +1841,16 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
                bound(4 * W * pt_b, W * (2 * add_ops + k * dbl_ops)), 20,
                small=True)
     abel["latency_bound_ms"] = (2 * add_us + k * dbl_us) / 1e3
+    abel["msm"] = "2^20"
 
     for name, rows, extra in (
-            (f"add_gather_{g}", per_shape, {"bucket_ends_leading_empty":
-                                            leading}),
+            (f"block_scan_{g}", scans, {}),
+            (f"add_gather_{g}", gathers, {"bucket_ends_leading_empty":
+                                          leading}),
             (f"abel_{g}", [abel], {})):
         for p in rows:
-            log(f"[timing] {name} {p['shape']}: kernel {p['ms']:.4f} ms"
+            log(f"[timing] {name} {p['msm']} {p['shape']}: kernel "
+                f"{p['ms']:.4f} ms"
                 + (f" (device {p['device_ms']:.4f})" if "device_ms" in p
                    else "")
                 + f", plain {p['plain_ms']:.3f} ms, bound "
@@ -1784,18 +1858,28 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
                 + (f", one thread's chain {p['latency_bound_ms']:.4f} ms"
                    if "latency_bound_ms" in p else "")
                 + f"; max |kernel - plain| = {p['err']}")
-        by = max(rows, key=lambda p: p["bound_ms"])["bound_by"]
+        big = [p for p in rows if p["msm"] == "2^20"]
+        small = [p for p in rows if p["msm"] == "2^18"]
+        by = max(big, key=lambda p: p["bound_ms"])["bound_by"]
         results[name].update(
-            shape=[p["shape"] for p in rows],
-            ms=sum(p["ms"] for p in rows),
-            plain_ms=sum(p["plain_ms"] for p in rows),
-            bound_ms=sum(p["bound_ms"] for p in rows), bound_by=by,
+            shape=[p["shape"] for p in big],
+            ms=sum(p["ms"] for p in big),
+            plain_ms=sum(p["plain_ms"] for p in big),
+            bound_ms=sum(p["bound_ms"] for p in big), bound_by=by,
+            launches=len(big),
             path_shape_err=max(p["err"] for p in rows),
-            checked_shapes=[p["shape"] for p in rows], per_shape=rows,
-            **extra)
-        log(f"[timing] {name}, summed over its shapes: kernel "
-            f"{results[name]['ms']:.4f} ms, bound "
-            f"{results[name]['bound_ms']:.5f} ms")
+            checked_shapes=[[p["msm"]] + p["shape"] for p in rows],
+            per_shape=rows, **extra)
+        if small:
+            results[name].update(
+                ms_2p18=sum(p["ms"] for p in small),
+                bound_ms_2p18=sum(p["bound_ms"] for p in small),
+                launches_2p18=len(small))
+        log(f"[timing] {name}, summed over one 2^20 MSM's launches "
+            f"({len(big)}): kernel {results[name]['ms']:.4f} ms, bound "
+            f"{results[name]['bound_ms']:.5f} ms"
+            + (f"; one 2^18 MSM's ({len(small)}): kernel "
+               f"{results[name]['ms_2p18']:.4f} ms" if small else ""))
     if not leading:
         raise SystemExit("tail_timing: window 0's leading buckets are not "
                          "empty")
@@ -1906,33 +1990,50 @@ def setup_expect(crs) -> dict:
             "normalize_fq": 3, "normalize_fq2": 1, "montmul_fq": 0}
 
 
-def gather_launches(m: int) -> int:
-    """add_gather launches of one MSM over m points (`ops/msm.py`,
-    chunks of 64): one for the bucket ends, then per level of the chunk
-    carries' prefix scan over B = ceil(m / 64) rows one fix-up while more
-    than 128 rows remain, and at the last level its Hillis-Steele
-    rounds."""
-    count, rows = 1, -(-m // 64)
-    while rows > 128:
-        count += 1
-        rows = -(-rows // 64)
-    return count + (rows - 1).bit_length()
+def tail_launches(m: int, c: int = 16, windows: int = 16) -> dict:
+    """block_scan and add_gather launches of one MSM over m points with
+    `windows` windows of c bits (`ops/msm.py`, chunks of 64): the chunk
+    carries' prefix scan over ceil(m / 64) rows, one block scan a level
+    (`block_scan_shape`) and one fix-up add_gather a level below the
+    first; the bucket ends' add_gather; the tree sum over 2^c buckets,
+    one block scan a level."""
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    def levels(n):
+        count = 0
+        while n > 1:
+            t, st = ck.block_scan_shape(n, windows)
+            n = -(-n // (t * st))
+            count += 1
+        return count
+
+    carries = levels(-(-m // 64))
+    return {"block_scan": carries + levels(1 << c),
+            "add_gather": 1 + max(carries - 1, 0)}
 
 
 def prove_expect(dqap, crs) -> dict:
     """The launches of one single-device `device_prove`: per MSM (four
     G1 over max(n + 3, C's points) points, one G2 over n + 2: the
-    CRS's `prove_sets`) one bucket scan, `gather_launches` add_gathers
-    and one abel; the NTT kernel once per pass of each of the seven
-    transforms; no elementwise madd, add or double_n."""
+    CRS's `prove_sets`) one bucket scan, the block scans and add_gathers
+    of `tail_launches` and one abel; the NTT kernel once per pass of each
+    of the seven transforms; no elementwise madd, add or double_n, no
+    add_scan."""
     from zksnark_tpu_torch.groth16 import prover
+    from zksnark_tpu_torch.ops import msm
 
     sets = prover.prove_sets(crs)
     m1, m2 = sets.xi_g1.z.shape[0], sets.xi_g2.z.shape[0]
+    c = msm.pick_window_bits(dqap.n)
+    w = -(-256 // c)
+    t1, t2 = tail_launches(m1, c, w), tail_launches(m2, c, w)
     return {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
             "madd_g2": 0, "add_g1": 0, "add_g2": 0, "double_n_g1": 0,
-            "double_n_g2": 0, "add_gather_g1": 4 * gather_launches(m1),
-            "add_gather_g2": gather_launches(m2), "abel_g1": 4,
+            "double_n_g2": 0, "add_scan_g1": 0, "add_scan_g2": 0,
+            "block_scan_g1": 4 * t1["block_scan"],
+            "block_scan_g2": t2["block_scan"],
+            "add_gather_g1": 4 * t1["add_gather"],
+            "add_gather_g2": t2["add_gather"], "abel_g1": 4,
             "abel_g2": 1, "ntt_fr": 7 * len(dqap.domain.widths)}
 
 
@@ -2011,7 +2112,7 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
         vs = time.time() - t1
         k34 = sum(v for k, v in launches.items()
                   if k.split("_g")[0] in ("add", "double", "add_scan",
-                                          "double_n", "horner",
+                                          "double_n", "horner", "block_scan",
                                           "add_gather", "abel"))
         log(f"[path] prove {i}: {ms:.1f} ms; launches {launches} (K3 + K4: "
             f"{k34}); peak device memory {peak:.2f} GiB; verify [x] {ok}, "
@@ -2533,7 +2634,7 @@ def point_ops_plain():
     CUDA tensors too, for the duration: the module's `_device` switch,
     which each of its wrappers asks (madd, add, double, the chains
     bucket_scan, add_scan, double_n, horner, comb and the tail's
-    add_gather and abel), answers "cpu".  It reroutes
+    block_scan, add_gather and abel), answers "cpu".  It reroutes
     nothing else: field products through `ops.montmul` and the NTT still
     launch their kernels, so a caller checks the counts.  An MSM over
     FQ_OPS (plain limb products) launches none."""
@@ -2605,7 +2706,9 @@ def msm_bits_phase(dev, xi_g1, seed: int) -> dict:
     log(f"[msm_bits] n={n}, c={c}, W = {n_win}: max |kernel - plain| = "
         f"{err} (plain on the card {plain_ms:.1f} ms, kernel launches in "
         f"it {stray or 0})")
-    tail = {"bucket_scan_g1": 1, "add_gather_g1": gather_launches(n),
+    tl = tail_launches(n, c, n_win)
+    tail = {"bucket_scan_g1": 1, "block_scan_g1": tl["block_scan"],
+            "add_gather_g1": tl["add_gather"], "add_scan_g1": 0,
             "abel_g1": 1, "add_g1": 0, "double_n_g1": 0}
     if not same or err or stray or n_win != -(-64 // c) or (
             dev.type == "cuda" and any(launches[k] != v
@@ -2736,7 +2839,7 @@ def mesh_run(backend: str, world: int, log_n: int, want: list) -> dict:
     """One mesh run of `world` rank processes (MESH_RANK), each proof held
     to `want` (the single-device proofs' JSON); returns rank 0's numbers
     and every rank's launches."""
-    from zksnark_tpu_torch.ops import ntt
+    from zksnark_tpu_torch.ops import msm, ntt
     from zksnark_tpu_torch.parallel import prove_sharded as psh
 
     env = dict(os.environ)
@@ -2776,12 +2879,20 @@ def mesh_run(backend: str, world: int, log_n: int, want: list) -> dict:
     # per MSM a rank runs n / world points, and the blinding's 3 (A and
     # C - h - c_delta) or 2 (B) appended
     per = (1 << log_n) // world
+    c = msm.pick_window_bits(1 << log_n)
+    w = -(-256 // c)
+    t3, t0, t2 = (tail_launches(per + 3, c, w), tail_launches(per, c, w),
+                  tail_launches(per + 2, c, w))
+    # the ranks' partial sums: one more tree-sum level an MSM
+    joint = int(world > 1)
     expect = {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
               "madd_g2": 0, "add_g1": 0, "add_g2": 0, "double_n_g1": 0,
-              "double_n_g2": 0,
-              "add_gather_g1": 2 * (gather_launches(per + 3)
-                                    + gather_launches(per)),
-              "add_gather_g2": gather_launches(per + 2), "abel_g1": 4,
+              "double_n_g2": 0, "add_scan_g1": 0, "add_scan_g2": 0,
+              "block_scan_g1": 2 * (t3["block_scan"] + t0["block_scan"])
+              + 4 * joint,
+              "block_scan_g2": t2["block_scan"] + joint,
+              "add_gather_g1": 2 * (t3["add_gather"] + t0["add_gather"]),
+              "add_gather_g2": t2["add_gather"], "abel_g1": 4,
               "abel_g2": 1,
               "ntt_fr": 0, "ntt_fr_batched": 7 * passes}
     log(f"[mesh] {label}: per prove and rank expected {expect}")
@@ -2804,11 +2915,10 @@ def mesh_run(backend: str, world: int, log_n: int, want: list) -> dict:
             got = launches[f"prove{i}"]
             wrong = {k: got[k] for k, v in expect.items() if got[k] != v}
             if wrong or not all(got[k] > 0 for k in (
-                    "add_scan_g1", "add_scan_g2", "horner_g1", "horner_g2",
-                    "montmul_fr")):
+                    "horner_g1", "horner_g2", "montmul_fr")):
                 raise SystemExit(f"mesh {label}: rank {r} prove {i} "
                                  f"launched {got}, expected {expect} and "
-                                 f"add_scan, horner, montmul_fr > 0")
+                                 f"horner, montmul_fr > 0")
         zero = [k for k, v in total.items()
                 if v == 0 and k not in MESH_OFF_PATH]
         if zero:

@@ -3,11 +3,14 @@
 `zksnark_tpu_torch.ops.msm._bucket_windows_sorted` runs the bucket scan
 (`curve_kernels.bucket_scan`: its plain version on CPU tensors) and then
 the chunk carries, the bucket ends, the forward fill and Abel; its (W,)
-window sums must equal, in raw Jacobian coordinates, JAX
-`zksnark_tpu.ops.msm._bucket_window_sorted` mapped over the windows, given
-the same sort permutation and sorted digits (made with numpy and handed to
-both).  The bucket scan's own outputs (slots, chunk indices, validity,
-chunk totals) are held to the host curve.
+window sums must equal JAX `zksnark_tpu.ops.msm._bucket_window_sorted`
+mapped over the windows, given the same sort permutation and sorted
+digits (made with numpy and handed to both), and the host curve's
+sum_k d_k P_k, in affine form (the port's carries and tree sum are block
+scans, which associate the adds otherwise than JAX's chunked scans).
+The bucket scan's own outputs (slots, chunk indices, validity, chunk
+totals), whose adds are JAX's in JAX's order, are held to the host
+curve.
 
 Cases: n = 2^8 points and n = 229 (not a multiple of 64: the last chunk
 runs past n), c = 4 and c = 8, each group at both n and both c, with
@@ -105,10 +108,9 @@ def _to_jax(p):
                          for c in p))
 
 
-def _assert_raw_equal(port, jax_pt):
-    for c, j in zip(port, jax_pt):
-        np.testing.assert_array_equal(limb.limbs_to_jax_np(c.numpy()),
-                                      np.asarray(j))
+def _from_jax(jax_pt):
+    return jac.JPoint(*(torch.from_numpy(limb.limbs_from_jax_np(
+        np.asarray(c))) for c in jax_pt))
 
 
 def _affine(ops, p):
@@ -160,7 +162,15 @@ def test_window_sums_match_jax(case):
     before = dict(ck.LAUNCHES)
     got = msm._bucket_windows_sorted(ops, P, order, d_sorted, 1 << c, True)
     assert ck.LAUNCHES == before       # CPU tensors run the plain version
-    _assert_raw_equal(got, want)
+    add, smul = GROUPS[group][3], GROUPS[group][5]
+    sums = []
+    for w in range(W):
+        acc = None
+        for k, d in zip(order[w].tolist(), d_sorted[w].tolist()):
+            if host[k] is not None and d:
+                acc = add(acc, smul(host[k], d))
+        sums.append(acc)
+    assert _affine(ops, got) == _affine(ops, _from_jax(want)) == sums
 
 
 def test_bucket_scan_outputs_match_host(case):

@@ -7,17 +7,18 @@ kernel replaced by its plain version).
   at log n <= 8;
 - `ops.msm.msm(..., scalar_bits=64)` (64 points, c = 4: W = 16 windows
   where the unbounded MSM has 64) against JAX `msm(..., scalar_bits=64)`
-  in raw Jacobian coordinates, and against the unbounded MSM in affine
-  form;
+  and against the unbounded MSM, in affine form (the port's tail
+  associates its adds otherwise, so its Jacobian coordinates differ);
 - `ops.msm.msm_windowed_batch` against JAX `_msm_windowed_many`, as
-  tests/test_msm_kernels.py sets it up;
+  tests/test_msm_kernels.py sets it up, in affine form;
 - `curve.jacobian.is_infinity`;
 - `utils.profiling`'s work counts against JAX's, the port's own
   `limb_muls` unit, and `PhaseTimer`;
 - the bench's `synthetic_square_chain` and `_reference_model_ms` against
   root `bench.py`'s at 2^4, and `python -m zksnark_tpu_torch.bench
   --device cpu --log-n 3 --repeats 1`.
-Tolerance: exact equality (limbs compared as JAX digits).
+Tolerance: exact equality (limbs compared as JAX digits, points in
+affine form).
 """
 
 import functools
@@ -193,10 +194,11 @@ def _to_jax(p):
                          for c in p))
 
 
-def _assert_raw_equal(port, jax_pt):
-    for c, j in zip(port, jax_pt):
-        np.testing.assert_array_equal(limb.limbs_to_jax_np(c.numpy()),
-                                      np.asarray(j))
+def _assert_group_equal(port, jax_pt):
+    """The same point in affine form (None: infinity)."""
+    assert jac.to_affine_np(FQ_OPS, port) == jac.to_affine_np(
+        FQ_OPS, jac.JPoint(*(torch.from_numpy(limb.limbs_from_jax_np(
+            np.asarray(c))) for c in jax_pt)))
 
 
 def test_bounded_msm_matches_jax_and_full():
@@ -213,7 +215,7 @@ def test_bounded_msm_matches_jax_and_full():
     assert msm._digit_columns(s, 4, 64).shape == (16, n)
     assert msm._digit_columns(s, 4).shape == (64, n)
     got = msm.msm(FQ_OPS, P, s, window_bits=4, scalar_bits=64)
-    _assert_raw_equal(got, want)
+    _assert_group_equal(got, want)
     full = msm.msm(FQ_OPS, P, s, window_bits=4)
     expect = _g1_mul(sum(k * v for k, v in zip(ks, svals)))
     assert jac.to_affine_np(FQ_OPS, got) == \
@@ -238,7 +240,7 @@ def test_msm_windowed_batch_matches_jax_many():
     out = jmsm._msm_windowed_many(J_FQ, pts, scs, 8, 0, False)
     got = msm.msm_windowed_batch(FQ_OPS, sets, 8)
     for j in range(m):
-        _assert_raw_equal(got[j], jjac.JPoint(out.x[j], out.y[j], out.z[j]))
+        _assert_group_equal(got[j], jjac.JPoint(out.x[j], out.y[j], out.z[j]))
         assert jac.to_affine_np(FQ_OPS, got[j]) == expect[j]
 
 

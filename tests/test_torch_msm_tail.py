@@ -8,17 +8,22 @@ in raw Jacobian coordinates,
   tables, infinity for an index < 0), for `add_gather`;
 - JAX `jacobian.add`, `msm._double_n`, `jacobian.neg` and `jacobian.add`
   composed as the JAX MSM's Abel step, for `abel`;
-- the tail as the port ran it before (materialized broadcasts, shifted
-  concatenations, a gather of the bucket ends and a select of infinity,
-  then elementwise adds and `double_n`), for `msm._hs_scan`,
-  `msm._prefix_scan` and `msm._bucket_windows_sorted` at the tail's toy
-  shapes (n = 2^8, c = 4).
+- the tail as the port ran it before (chunked add scans of 64 steps,
+  Hillis-Steele rounds over materialized shifted concatenations,
+  broadcasts, a gather of the bucket ends and a select of infinity, then
+  elementwise adds and `double_n`), for `msm._prefix_scan` and
+  `msm._bucket_windows_sorted` at the tail's toy shapes (n = 2^8, c = 4).
+  Where one block of one step a thread covers the scan, the block scan's
+  rounds are the Hillis-Steele rounds, so raw Jacobian coordinates are
+  equal; otherwise the block scans associate the adds otherwise, so the
+  results, of real curve points, are compared in affine form, with the
+  old composition and with the host curve's running sums.
 The cases: indices < 0 on either side and on both (the canonical
 infinity), equal points that meet only through the gather (the doubling
 branch reads P's row again), P = -Q, infinity rows, a bucket whose points
-cancel, windows whose leading buckets are empty, and equal chunk totals
-in the Hillis-Steele rounds.  The off-curve rows are random canonical
-residues: the formulas and their branches act on them as on real points.
+cancel, windows whose leading buckets are empty, and equal chunk and
+block totals.  The off-curve rows are random canonical residues: the
+formulas and their branches act on them as on real points.
 Tolerance: exact equality.
 """
 
@@ -270,6 +275,20 @@ def test_tail_entries_reject_bad_arguments(pts):
 # the tail against the composition it replaced
 # ---------------------------------------------------------------------------
 
+def _old_scan_chunks(ops, pts, c, collect):
+    n = pts.z.shape[0]
+    b = -(-n // c)
+    pts = msm._pad_to(ops, pts, b * c)
+    return ck.add_scan(ops, jac.JPoint(*(a.reshape((b, c) + a.shape[1:])
+                                         for a in pts)), collect)
+
+
+def _old_tree_sum(ops, pts):
+    while pts.z.shape[0] > 1:
+        pts, _ = _old_scan_chunks(ops, pts, min(64, pts.z.shape[0]), False)
+    return msm._index(pts, 0)
+
+
 def _old_hs_scan(ops, pts):
     size = pts.z.shape[0]
     if size <= 1:
@@ -287,7 +306,7 @@ def _old_prefix_scan(ops, pts):
     n = pts.z.shape[0]
     if n <= 2 * msm._CHUNK:
         return _old_hs_scan(ops, pts)
-    totals, within = msm._scan_chunks(ops, pts, msm._CHUNK, collect=True)
+    totals, within = _old_scan_chunks(ops, pts, msm._CHUNK, collect=True)
     b = totals.z.shape[0]
     rest = msm._batch_shape(ops, totals)[1:]
     shifted = msm._cat(jac.infinity(ops, (1,) + rest),
@@ -325,49 +344,79 @@ def _old_bucket_windows_sorted(ops, pts, order, d_sorted, num_buckets,
                         jac.infinity(ops, (W, num_buckets)), filled)
     e_top = ck.add(ops, msm._index(carry, b - 1), msm._index(totals, b - 1))
     lhs = ck.double_n(ops, e_top, num_buckets.bit_length() - 1)
-    rhs = msm.tree_sum(ops, jac.JPoint(*(a.transpose(0, 1) for a in filled)))
+    rhs = _old_tree_sum(ops, jac.JPoint(*(a.transpose(0, 1)
+                                          for a in filled)))
     return ck.add(ops, lhs, jac.neg(ops, rhs))
 
 
+def _chain(pts, n):
+    """n real points P_0 + k D (host), k = 0 .. n - 1."""
+    cur, step = pts.host(pts.hrng.randrange(1, R)), \
+        pts.host(pts.hrng.randrange(1, R))
+    out = []
+    for _ in range(n):
+        out.append(cur)
+        cur = pts.add(cur, step)
+    return out
+
+
 def test_hs_scan_equals_old(pts):
-    """5 positions x 3 lanes: lane 0 holds one point twice in a row (round
-    0 doubles it through the gather), lane 1 a point and its negation,
-    lane 2 an infinity."""
+    """5 positions x 3 lanes, one block of one step a thread: the block
+    scan's rounds are the Hillis-Steele rounds, raw.  Lane 0 holds one
+    point twice in a row (round 0 doubles it), lane 1 a point and its
+    negation, lane 2 an infinity."""
     p = pts.random((5, 3))
     for c in p:
         c[1, 0] = c[0, 0]
     p.y[2, 1] = pts.ops.neg(p.y[1, 1])
     p.x[2, 1], p.z[2, 1] = p.x[1, 1], p.z[1, 1]
     p.z[3, 2] = 0
-    _raw_equal(msm._hs_scan(pts.ops, p), _old_hs_scan(pts.ops, p))
+    assert ck.block_scan_shape(5, 3) == (8, 1)
+    _raw_equal(msm._prefix_scan(pts.ops, p), _old_hs_scan(pts.ops, p))
 
 
 def test_prefix_scan_equals_old(pts):
-    """2^8 positions x 2 lanes (four chunks of 64: the fix-up adds each
-    chunk's carry row), with infinities, and lane 1's chunks identical so
-    that its chunk totals are equal."""
-    p = pts.random((256, 2))
-    p.z[torch.from_numpy(pts.rng.random(256) < 1 / 16), 0] = 0
-    for c in p:
-        c[64:, 1] = c[:64, 1].repeat((3,) + (1,) * (c.dim() - 2))
+    """2^8 positions x 2 lanes of real points with Z rescaled (four
+    blocks of 64: the block totals' scan and the fix-up that adds each
+    block's carry), with infinities, and lane 1's chunks of 64 identical
+    so that its block totals are equal; in affine form against the old
+    composition (four chunks of 64) and the host's running sums."""
+    n = 256
+    assert ck.block_scan_shape(n, 2) == (64, 1)
+    host = _chain(pts, n + 64)
+    mask = pts.rng.random(n) < 1 / 16
+    lane0 = [None if m else h for m, h in zip(mask, host[:n])]
+    lane1 = host[n:] * 4
+    grid = [h for pair in zip(lane0, lane1) for h in pair]
+    flat = pts.real(grid, [pts.hrng.randrange(1, 1 << 60)
+                           for _ in grid])
+    p = jac.JPoint(*(a.reshape((n, 2) + a.shape[1:]) for a in flat))
     got = msm._prefix_scan(pts.ops, p)
     assert got.z.shape == p.z.shape
-    _raw_equal(got, _old_prefix_scan(pts.ops, p))
+    want, acc = [], [None, None]
+    for a, b in zip(lane0, lane1):
+        acc = [pts.add(acc[0], a), pts.add(acc[1], b)]
+        want += acc
+    flat_of = (lambda q: jac.JPoint(*(a.reshape((2 * n,) + a.shape[2:])
+                                      for a in q)))
+    assert pts.affine(flat_of(got)) == want
+    assert pts.affine(flat_of(_old_prefix_scan(pts.ops, p))) == want
 
 
 def test_bucket_windows_equal_old(pts):
-    """n = 2^8 points, c = 4 (16 buckets), mixed adds over an
+    """n = 2^8 real points, c = 4 (16 buckets), mixed adds over an
     affine-or-infinity table, four windows: digits in [5, 16) only (five
     empty leading buckets), a bucket of a point and its negation (it
     cancels) beside random digits, every point in bucket 9 (equal chunk
-    totals for the carries' Hillis-Steele rounds: the table repeats one
-    chunk of 64 points), and random digits."""
+    totals: the table repeats one chunk of 64 points), and random digits;
+    in affine form against the old composition and the host curve's
+    sum_i d_i P_i."""
     n, nb = 256, 16
-    p = pts.random((64,), z="one")
-    p = jac.JPoint(*(c.repeat((4,) + (1,) * (c.dim() - 1)) for c in p))
-    p.z[torch.arange(n) % 64 == 13] = 0
-    p.x[1], p.z[1] = p.x[0], p.z[0]
-    p.y[1] = pts.ops.neg(p.y[0])
+    host = _chain(pts, 64)
+    host[13] = None
+    host[1] = pts.neg(host[0])
+    host = host * 4
+    p = pts.real(host)
     rng = np.random.default_rng(3)
     digits = np.stack([rng.integers(5, nb, n), rng.integers(0, nb, n),
                        np.full(n, 9), rng.integers(0, nb, n)])
@@ -378,4 +427,12 @@ def test_bucket_windows_equal_old(pts):
     args = (pts.ops, p, order, d_sorted, nb, True)
     got = msm._bucket_windows_sorted(*args)
     assert got.z.shape[0] == 4
-    _raw_equal(got, _old_bucket_windows_sorted(*args))
+    want = []
+    for w in range(4):
+        acc = None
+        for h, d in zip(host, digits[w].tolist()):
+            if h is not None and d:
+                acc = pts.add(acc, pts.smul(h, d))
+        want.append(acc)
+    assert pts.affine(got) == want
+    assert pts.affine(_old_bucket_windows_sorted(*args)) == want

@@ -63,6 +63,7 @@ SIGNATURES = {
     "point_tail.cu": {
         "zk_point_add_gather": [_I] + [_P] * 11 + [_LL, _P],
         "zk_point_abel": [_I] + [_P] * 12 + [_LL, _I, _P],
+        "zk_point_block_scan": [_I] + [_P] * 9 + [_LL, _LL, _I, _I, _I, _P],
     },
 }
 

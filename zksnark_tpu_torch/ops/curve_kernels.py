@@ -32,10 +32,17 @@ Chains, one launch each where the JAX package runs a `lax.scan` or
 Their plain versions are the loops of the elementwise plain versions.
 
 The MSM's tail (`csrc/point_tail.cu`):
+- `block_scan`: running sums of point columns along axis 0 in blocks of
+  T threads x s positions, a block's thread sums scanned in shared
+  memory: the chunk carries' prefix scan and the tree sum, one launch a
+  level (`block_scan_shape` picks T and s from the level's size).  It
+  associates the adds otherwise than the JAX package's
+  chunked scans: its sums are other Jacobian representatives of the same
+  points, and its plain version runs its own association;
 - `add_gather`: the add of rows gathered from two point tables, an index
-  < 0 standing for infinity: the bucket ends with their forward fill, the
-  chunk-carry fix-up and the Hillis-Steele rounds, each in one launch
-  without materializing the gathered, broadcast or shifted operands;
+  < 0 standing for infinity: the bucket ends with their forward fill and
+  the block carries' fix-up, each in one launch without materializing
+  the gathered or broadcast operands;
 - `abel`: the Abel step of one MSM's windows, 2^k (C + T) - R (an add, k
   doublings, the negation and an add), one launch.
 
@@ -57,10 +64,24 @@ from ..utils import profiling
 # launches of each kernel entry (`profiling.launch_counts()`)
 LAUNCHES = profiling.launch_counter(__name__, (
     f"{op}_{g}" for op in ("madd", "add", "double", "bucket_scan", "add_scan",
-                           "double_n", "horner", "comb", "add_gather", "abel")
+                           "double_n", "horner", "comb", "add_gather", "abel",
+                           "block_scan")
     for g in ("g1", "g2")))
 
 COMB_WINDOWS, COMB_DIGITS = 32, 256     # 8-bit windows of a 256-bit scalar
+
+# The block scan's block, at most, by elem_ndim (G1, G2): the kernel's
+# launch bound, which caps its registers.
+BLOCK_SCAN_THREADS = {1: 128, 2: 64}
+# The shape `block_scan_shape` picks, for G1 and G2 alike (the fastest on
+# the H100 at the tail's shapes, in both groups): a level of ~2^15 threads, two warps a
+# scheduler of the 132 SMs, where a level stops waiting on one thread's
+# chain of dependent adds and waits on the integer units instead; blocks
+# of 64 threads at most, so that 2^15 threads leave few enough block totals
+# for one block of the next level; 32 positions a thread at most.
+BLOCK_SCAN_LANES = 1 << 15
+BLOCK_SCAN_BLOCK = 64
+BLOCK_SCAN_STEPS = 32
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +286,86 @@ def add_scan_plain(ops, grid: JPoint, collect: bool):
     return acc, within
 
 
+def block_scan_shape(n: int, r: int):
+    """(threads, steps) of the block scan of n positions in r columns: the
+    most steps, a power of two up to BLOCK_SCAN_STEPS, that leave the
+    level BLOCK_SCAN_LANES threads or more (one step where it has fewer
+    positions), then the fewest threads, a power of two up to
+    BLOCK_SCAN_BLOCK, that cover a column."""
+    steps = 1
+    while steps < BLOCK_SCAN_STEPS and n * r >= 2 * steps * BLOCK_SCAN_LANES:
+        steps *= 2
+    threads = min(BLOCK_SCAN_BLOCK, 1 << (-(-n // steps) - 1).bit_length())
+    return threads, steps
+
+
+def _threads_axis(p: JPoint, sl) -> JPoint:
+    return JPoint(*(a[:, sl] for a in p))
+
+
+def block_scan_plain(ops, pts: JPoint, collect: bool, threads: int,
+                     steps: int):
+    """Running sums along axis 0 of (n, *rest) points, in blocks of
+    `threads` x `steps` positions of each column.  Thread t of block k
+    adds positions k T s + t s, ..., + s - 1 (those below n) in order,
+    from infinity; the block's T thread sums are scanned in log2 T
+    rounds: round d adds to each sum the one d threads back (collecting:
+    every thread's inclusive prefix) or pairs neighbours in a tree (only
+    the block's total).  Collecting, each thread then adds all but its
+    last position again, in order, from the inclusive prefix of the
+    thread before it (infinity for thread 0), and its last position takes
+    its own inclusive prefix.  Returns (totals (ceil(n / (T s)), *rest),
+    every inclusive prefix within its block (n, *rest) or None): the
+    kernel's adds in the kernel's association, so its raw coordinates."""
+    e = ops.elem_ndim
+    n = pts.z.shape[0]
+    rest = tuple(pts.z.shape[1:pts.z.dim() - e])
+    dev = pts.z.device
+    nblk = -(-n // (threads * steps))
+    lanes = (nblk, threads) + rest
+    pad = jac.infinity(ops, (nblk * threads * steps - n,) + rest, dev)
+    grid = JPoint(*(torch.cat([a, b]).reshape(
+        (nblk, threads, steps) + rest + a.shape[a.dim() - e:])
+        for a, b in zip(pts, pad)))
+    first = torch.arange(nblk * threads, device=dev) * steps
+    live = (n - first).clamp(0, steps).reshape(
+        (nblk, threads) + (1,) * len(rest)).expand(lanes)
+
+    def step(j):
+        return JPoint(*(a[:, :, j] for a in grid))
+
+    acc = jac.infinity(ops, lanes, dev)
+    for j in range(steps):
+        acc = jac.select(ops, live > j, add_plain(ops, acc, step(j)), acc)
+    d = 1
+    while d < threads:
+        if collect:
+            moved = add_plain(ops, _threads_axis(acc, slice(0, threads - d)),
+                              _threads_axis(acc, slice(d, threads)))
+            acc = JPoint(*(torch.cat([a[:, :d], m], 1)
+                           for a, m in zip(acc, moved)))
+        else:
+            acc = add_plain(ops, _threads_axis(acc, slice(0, None, 2)),
+                            _threads_axis(acc, slice(1, None, 2)))
+        d *= 2
+    totals = JPoint(*(a[:, -1].contiguous() for a in acc))
+    if not collect:
+        return totals, None
+    inclusive = acc
+    acc = JPoint(*(torch.cat([b, a[:, :threads - 1]], 1) for a, b in zip(
+        inclusive, jac.infinity(ops, (nblk, 1) + rest, dev))))
+    within = []
+    for j in range(steps):
+        if j < steps - 1:
+            acc = jac.select(ops, live > j + 1, add_plain(ops, acc, step(j)),
+                             acc)
+        within.append(jac.select(ops, live == j + 1, inclusive, acc))
+    within = JPoint(*(torch.stack(c, 2).reshape(
+        (nblk * threads * steps,) + rest + c[0].shape[c[0].dim() - e:])[:n]
+        for c in zip(*within)))
+    return totals, within
+
+
 def double_n_plain(ops, p: JPoint, k: int) -> JPoint:
     for _ in range(k):
         p = double_plain(ops, p)
@@ -429,6 +530,22 @@ def _add_scan_cuda(ops, grid: JPoint, collect: bool):
     return totals, within
 
 
+def _block_scan_cuda(ops, pts: JPoint, collect: bool, threads: int,
+                     steps: int):
+    elem = _elem(ops)
+    batch = pts.z.shape[:pts.z.dim() - ops.elem_ndim]
+    n, rest = batch[0], batch[1:]
+    dev = pts.z.device
+    ins = [_flat(a, elem) for a in pts]
+    totals = _new((-(-n // (threads * steps)),) + rest, elem, dev)
+    within = _new(batch, elem, dev) if collect else None
+    if n * math.prod(rest):
+        _call("point_tail.cu", "block_scan", ops, dev, *_ptrs(ins),
+              *_ptrs(totals), *_ptrs(within), n, math.prod(rest), threads,
+              steps, int(collect))
+    return totals, within
+
+
 def _double_n_cuda(ops, p: JPoint, k: int) -> JPoint:
     elem = _elem(ops)
     ins = [_flat(a, elem) for a in p]
@@ -547,6 +664,22 @@ def add_scan(ops, grid: JPoint, collect: bool = False):
     if _device(grid, "add_scan") == "cuda":
         return _add_scan_cuda(ops, grid, collect)
     return add_scan_plain(ops, grid, collect)
+
+
+def block_scan(ops, pts: JPoint, collect: bool, threads: int, steps: int):
+    """Running sums along axis 0 of (n, *rest) points in blocks of
+    `threads` (a power of two up to BLOCK_SCAN_THREADS) x `steps`
+    positions a column (see `block_scan_plain`; `block_scan_shape` picks
+    them for a level); one launch on CUDA tensors."""
+    most = BLOCK_SCAN_THREADS[ops.elem_ndim]
+    if not 0 < threads <= most or threads & (threads - 1) or steps < 1:
+        raise ValueError(f"block_scan: {threads} threads (a power of two "
+                         f"up to {most}) x {steps} steps")
+    if math.prod(pts.z.shape[:pts.z.dim() - ops.elem_ndim]) >= 1 << 31:
+        raise ValueError("block_scan: 2^31 or more points")
+    if _device(pts, "block_scan") == "cuda":
+        return _block_scan_cuda(ops, pts, collect, threads, steps)
+    return block_scan_plain(ops, pts, collect, threads, steps)
 
 
 def double_n(ops, p: JPoint, k: int) -> JPoint:

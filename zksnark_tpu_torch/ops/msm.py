@@ -9,8 +9,8 @@ Counterpart of `zksnark_tpu/ops/msm.py`, in the same formulation:
   scans every chunk of every window side by side (`madd` when the points
   are affine-or-infinity), reading the points through the permutation
   and writing each bucket's run-end prefix to its slot; the chunk carries
-  and the tree sum are add scans, one launch each
-  (`curve_kernels.add_scan`);
+  and the tree sum are block scans (`curve_kernels.block_scan`), one
+  launch a level, two levels each at 2^20 points;
 - the weighted bucket reduction is Abel summation,
       sum_j j*B_j = 2^c * E_top - sum_j E_j,
   with E_j the prefix at the end of the last non-empty bucket <= j —
@@ -21,12 +21,15 @@ Counterpart of `zksnark_tpu/ops/msm.py`, in the same formulation:
 The JAX package maps the per-window procedure over windows with `vmap`;
 here the window is a batch axis of every tensor.  The tail's adds read
 their operands through index tensors (`curve_kernels.add_gather`, an
-index < 0 standing for infinity), so no gathered, broadcast or shifted
-copy of a point array is made: the bucket ends with their forward fill,
-the chunk-carry fix-up and each Hillis-Steele round are one launch each.
-The Abel step (an add, the doubling chain, the negation and an add) and
-the Horner tail are one launch each (`curve_kernels.abel`,
-`curve_kernels.horner`).
+index < 0 standing for infinity), so no gathered or broadcast copy of a
+point array is made: the bucket ends with their forward fill and the
+block carries' fix-up are one launch each.  The Abel step (an add, the
+doubling chain, the negation and an add) and the Horner tail are one
+launch each (`curve_kernels.abel`, `curve_kernels.horner`).
+
+The block scans associate the tail's adds otherwise than the JAX
+package's chunked scans, so a window sum or an MSM is another Jacobian
+representative of the JAX package's point: equal in affine form.
 
 Scalars are standard-form (N, 8) int32 limbs; points are `JPoint` batches.
 """
@@ -66,20 +69,6 @@ def _positions(ops, pts: JPoint, n: int) -> torch.Tensor:
                         device=pts.z.device).reshape(shape)
 
 
-def _hs_scan(ops, pts: JPoint) -> JPoint:
-    """Inclusive Hillis-Steele prefix scan along axis 0 (identity =
-    infinity); only for small sizes.  Round k adds the point 2^k
-    positions back (infinity before the start) to each point."""
-    size = pts.z.shape[0]
-    if size <= 1:
-        return pts
-    i = _positions(ops, pts, size)
-    r = i[0].numel()
-    for k in range((size - 1).bit_length()):
-        pts = ck.add_gather(ops, pts, i - (r << k), pts, i)
-    return pts
-
-
 def _pad_to(ops, pts: JPoint, m: int) -> JPoint:
     n = pts.z.shape[0]
     if m == n:
@@ -88,42 +77,37 @@ def _pad_to(ops, pts: JPoint, m: int) -> JPoint:
     return _cat(pts, jac.infinity(ops, (m - n,) + rest, pts.z.device))
 
 
-def _scan_chunks(ops, pts: JPoint, c: int, collect: bool):
-    """Lay axis 0 out as (B, c) in place and scan the c sequential
-    positions with all B chunks (and any further batch axes) side by side,
-    in one add-scan launch.  Returns (totals (B, ...), within (B, c, ...)
-    or None)."""
+def _block_shape(ops, pts: JPoint):
     n = pts.z.shape[0]
-    b = -(-n // c)
-    pts = _pad_to(ops, pts, b * c)
-    grid = JPoint(*(a.reshape((b, c) + a.shape[1:]) for a in pts))
-    return ck.add_scan(ops, grid, collect)
+    return ck.block_scan_shape(n, math.prod(_batch_shape(ops, pts)[1:]))
 
 
 def _prefix_scan(ops, pts: JPoint) -> JPoint:
-    """Work-efficient inclusive prefix scan over axis 0 (~2N adds)."""
+    """Inclusive prefix scan over axis 0 (identity = infinity): one block
+    scan, and where it leaves more than one block a column, the prefix
+    scan of the block totals and one fix-up that adds each block's carry
+    (~2N adds)."""
     n = pts.z.shape[0]
-    if n <= 2 * _CHUNK:
-        return _hs_scan(ops, pts)
-    totals, within = _scan_chunks(ops, pts, _CHUNK, collect=True)
-    b = totals.z.shape[0]
-    rest = _batch_shape(ops, totals)[1:]
-    shifted = _cat(jac.infinity(ops, (1,) + rest, pts.z.device),
-                   _index(totals, slice(0, b - 1)))
-    carry = _prefix_scan(ops, shifted)                         # (B, ...)
-    # position i (of the first n) gets its chunk's carry row added
+    if n <= 1:
+        return pts
+    threads, steps = _block_shape(ops, pts)
+    totals, within = ck.block_scan(ops, pts, True, threads, steps)
+    if totals.z.shape[0] == 1:
+        return within
+    carry = _prefix_scan(ops, totals)                        # (blocks, ...)
+    # position i gets the inclusive carry of the block before its own
+    # (row -r + col < 0, infinity, in block 0)
     i = _positions(ops, pts, n)
     r = i[0].numel()
-    return ck.add_gather(ops, carry, i // (_CHUNK * r) * r + i % r,
-                         within, i)
+    return ck.add_gather(ops, carry, (i // (threads * steps * r) - 1) * r
+                         + i % r, within, i)
 
 
 def tree_sum(ops, pts: JPoint) -> JPoint:
-    """Total of a batch of points over axis 0: repeated chunked scan-sums
-    (work N, one add-scan launch per level)."""
+    """Total of a batch of points over axis 0: one block scan a level
+    (work N)."""
     while pts.z.shape[0] > 1:
-        c = min(_CHUNK, pts.z.shape[0])
-        pts, _ = _scan_chunks(ops, pts, c, collect=False)
+        pts, _ = ck.block_scan(ops, pts, False, *_block_shape(ops, pts))
     return _index(pts, 0)
 
 
