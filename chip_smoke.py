@@ -37,17 +37,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    arithmetic.  Each entry and its plain version then run on the same
    random CUDA inputs at the shapes the main path gives it: the two
    outputs must again be equal bit for bit, and both are timed with CUDA
-   events: the chains, the bucket scan, the NTT, the scan (every level
-   of a 2^20 prefix product, and the whole product against itself on
-   the plain scan), normalize (2^20 points), the comb (2^20 scalars, G1
-   and G2) and the MSM's tail (every level of the block scans of the
-   chunk carries and of the tree sum at 2^20 and 2^18 points, the
-   bucket ends of a real 2^20 bucket scan, the carries' fix-ups at 2^20
-   and 2^18, Abel at W = 16; with the profiler's device time at the
-   small shapes).  The G1
-   bucket scan is also checked at the keccak path's C MSM digit columns
-   (W = 16, c = 16, 2^18 positions, window 0 in {0, 1}, windows 1-15
-   all 0).
+   events: the chains, the bucket scan (a 2^20 prove's: one and two
+   windows over window tables of 16 (2^20 + 3) rows, G1, and one over
+   16 (2^20 + 2), G2; and the windowed formulation's 16 windows over
+   2^20 points), the NTT, the scan (every level of a 2^20 prefix
+   product, and the whole product against itself on the plain scan),
+   normalize (2^20 points), the comb (2^20 scalars, G1 and G2) and the
+   MSM's tail (a 2^20 and a 2^18 prove's, the G1 MSMs' one tail over 4
+   columns and the G2 MSM's over 1: the bucket ends of a real bucket
+   scan of the tables' rows, every level of the block scans of the
+   chunk carries and of the tree sum, the carries' fix-ups, Abel; and
+   the windowed formulation's at one 2^20 MSM over 16 columns; with the
+   profiler's device time at the small shapes).  The G1 bucket scan is
+   also checked at the keccak path's C MSM digits on its table (16
+   blocks of 2^18 + 3 rows, block 0 in {0, 1}, blocks 1-15 all 0).
 3. reference: a small circuit (n = 2^3) proves on the card and with the
    plain versions on the CPU; the two proofs must be equal.
 4. path: the main path at full size — the square-chain circuit with
@@ -56,21 +59,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    on its public input x and be rejected on x + 1.  The kernel launch
    counts are reset just before setup and read after it and after each
    prove; every kernel entry of the path must have launched (all but the
-   elementwise double, madd, add, double_n and Fq product, whose work
-   now runs in horner, the bucket scan, add_gather, abel, the comb,
-   mont_scan and normalize, and the batched NTT, which only the mesh
-   path runs); setup must
-   launch the comb and normalize once per point set (three G1, one G2),
-   the scan `scan_launches(n)` times for each of a set's two prefix
-   products and the elementwise madd and Fq product not at all; each
-   prove (`prove_expect`) must launch per MSM (four G1, one G2) the
-   bucket scan once, block_scan and add_gather as `tail_launches(m)`
-   says (4 and 2 at m = 2^20 + 3 and 2^20 + 2, the blinding's points
-   appended: 16 and 8 G1, 4 and 2 G2) and abel once, the elementwise
-   madd, add and double_n and add_scan not at all, and the NTT kernel
-   once per pass of its seven transforms.  A second setup
-   is then timed phase by phase (scalars, host sigma points, comb,
-   normalize) and must make the same CRS.
+   elementwise double, madd, add and Fq product, whose work now runs in
+   the bucket scan, add_gather, abel, the comb, mont_scan and normalize,
+   horner and the batched NTT, which only the mesh path runs, and
+   double_n, which only setup's window tables run); setup
+   (`setup_expect`) must launch the comb and normalize once per point
+   set (three G1, one G2), the scan `scan_launches(n)` times for each of
+   a set's two prefix products, then for the prove sets' window tables
+   double_n W - 1 times a group and one more batch_normalize a set, and
+   the elementwise madd and Fq product not at all; each prove
+   (`prove_expect`) must launch the bucket scan once a table (three G1,
+   one G2), block_scan and add_gather as `tail_launches` says for the
+   four G1 MSMs' one tail and the G2 MSM's, abel once a tail, horner,
+   the elementwise madd, add and double_n and add_scan not at all, and
+   the NTT kernel once per pass of its seven transforms.  The prove's
+   MSMs over the window tables (`_prove_core`) must then give the
+   windowed formulation's five points, in affine form, on the same sets
+   and scalars (both timed, in turns).  A second setup is then timed
+   phase by phase (scalars, host sigma points, comb, normalize, tables)
+   and must make the same CRS.
 5. keccak: the example `zksnark_tpu_torch.examples.keccak_proof` at full
    size (4-byte preimage, 232,016 gates, n = 2^18, 288 public inputs):
    its host stages timed, setup, two proves with distinct blindings,
@@ -207,18 +214,20 @@ SOURCES = {
     "block_scan": "zksnark_tpu_torch/csrc/point_tail.cu",
 }
 # the elementwise double, madd, add, double_n and Fq product have no
-# launch on the main path: the MSM's doubling chains run in horner and
-# abel, its mixed adds in the bucket scan, its tail's adds in add_gather
-# and abel, setup's mixed adds in the comb, batch_normalize's products
-# in mont_scan and normalize; the batched NTT runs on the mesh path only,
-# where every transform is batched; the wide rows' kernel only where a
-# circuit has rows wider than its ELL (none of the circuits here); the
-# chunked add scan neither: the MSM's carries and tree sum run as block
-# scans
+# launch on the main path's proves: the MSM's doubling chains run in abel
+# (and horner on the mesh), its mixed adds in the bucket scan, its tail's
+# adds in add_gather and abel, setup's mixed adds in the comb, its window
+# tables' doublings in double_n, batch_normalize's products in mont_scan
+# and normalize; the batched NTT runs on the mesh path only, where every
+# transform is batched; the wide rows' kernel only where a circuit has
+# rows wider than its ELL (none of the circuits here); the chunked add
+# scan neither: the MSM's carries and tree sum run as block scans; horner
+# on the mesh path only: a single-device prove's MSMs run over the window
+# tables
 ELEMENTWISE = ("double_g1", "double_g2", "madd_g1", "madd_g2", "add_g1",
                "add_g2", "double_n_g1", "double_n_g2", "montmul_fq",
                "wide_rows_fr", "add_scan_g1", "add_scan_g2")
-OFF_PATH = ELEMENTWISE + ("ntt_fr_batched",)
+OFF_PATH = ELEMENTWISE + ("ntt_fr_batched", "horner_g1", "horner_g2")
 MESH_OFF_PATH = ELEMENTWISE + ("ntt_fr",)
 MESH_ONLY = ("ntt_fr_batched",)
 # result name -> TPU_KERNELS / SOURCES key, where not the name's stem
@@ -1423,13 +1432,25 @@ ADD_SHAPES = [1 << 20, 1 << 18, 4096, 64, 16]
 # that add_scan ran, off the prove path since the block scans
 SCAN_SHAPES = [(256, 64, 16, True), (4, 64, 16, True), (1024, 64, 16, False),
                (16, 64, 16, False), (1, 16, 16, False)]
-DOUBLE_N_SHAPE = (16, 16)        # the former Abel step: 2^16 E_top
-# Horner: W windows, c doublings each, MSMs side by side (a prove's four
-# G1 MSMs share one launch; its G2 MSM has its own)
+# double_n at setup's window tables (`ops.msm.window_table`, c = 16): one
+# launch a block of the three G1 sets side by side (3 (2^20 + 3) points)
+# and of the G2 set (2^20 + 2), 16 doublings each
+DOUBLE_N_SHAPE = {"g1": (3 * ((1 << 20) + 3), 16), "g2": ((1 << 20) + 2, 16)}
+# Horner (the mesh path's): W windows, c doublings each, MSMs side by side
+# (a prove's four G1 MSMs share one launch; its G2 MSM has its own)
 HORNER_SHAPE = {"g1": (16, 16, 4), "g2": (16, 16, 1)}
 
 
-# the bucket scan at one 2^20 MSM's shape: W windows of c-bit digits
+# the bucket scans of one prove on the table path (`ops.msm.msm_tables`,
+# c = 16): one window a scalar set over a table of W = 16 blocks of m rows,
+# the digits laid out w-major as the table's rows; xi_g1's table takes two
+# sets (A and C - h - c_delta), xi_t_g1's and sum_delta_g1's one each (G1,
+# m = 2^20 + 3), xi_g2's one (G2, m = 2^20 + 2): (m, [(sets, launches a
+# prove), ...])
+BUCKET_TABLES = {"g1": ((1 << 20) + 3, [(2, 1), (1, 2)]),
+                 "g2": ((1 << 20) + 2, [(1, 1)])}
+# the windowed formulation's bucket scan (the mesh path, `msm`,
+# `msm_windowed`) at one 2^20 MSM: W windows of c-bit digits
 BUCKET_SHAPE = {"windows": 16, "c": 16, "n": 1 << 20}
 NTT_LOG_N = 20                   # the prove's transforms; checked 1 .. 20
 # the mesh path's four-step batches, (transforms, log n) of a rank's
@@ -1438,105 +1459,154 @@ NTT_LOG_N = 20                   # the prove's transforms; checked 1 .. 20
 NTT_BATCH_SHAPES = [(1 << 10, 10), (1 << 8, 9), (1 << 7, 9)]
 
 
-def bucket_timing(ops, g, rnd_elem, gen, results) -> None:
-    """The bucket scan of one 2^20 MSM (W = 16 windows of 16-bit digits,
-    sorted as the MSM sorts them, over an affine table with a point at
-    infinity 1 time in 16): the kernel and its plain version, on the same
-    inputs, timed and compared."""
+def table_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """The (J, W m) digit rows of J sets of m scalars, (J, m, 8), laid out
+    w-major as a window table's rows (`ops.msm.msm_tables`)."""
+    from zksnark_tpu_torch.ops import msm
+
+    return torch.stack([msm._digit_columns(s, c).reshape(-1)
+                        for s in scalars])
+
+
+def bucket_bound(ops, g, tab, windows: int, nb: int, points: int):
+    """What a bucket scan of `windows` windows over the table `tab` needs:
+    a mixed add per real point and window, the table and the digits and
+    order read, the slots, chunk indices, flags and chunk totals
+    written."""
     from zksnark_tpu_torch.curve import jacobian as jac
     from zksnark_tpu_torch.ops import curve_kernels as ck
 
-    W, c, n = (BUCKET_SHAPE[k] for k in ("windows", "c", "n"))
-    nb = 1 << c
-    dev = gen.device
-    zm = torch.randint(0, 16, (n,), device=dev, generator=gen) == 0
-    tab = jac.JPoint(rnd_elem(n), rnd_elem(n), ops.select(
-        zm, ops.zero((n,), dev), ops.one((n,), dev)).contiguous())
-    d_sorted, order = torch.sort(torch.randint(
-        0, nb, (W, n), device=dev, generator=gen), dim=1)
-    args = (ops, tab, order, d_sorted, nb, 64, True)
-    ms, got = time_cuda(lambda: ck.bucket_scan(*args), 5)
-    plain_ms, want = time_cuda(lambda: ck.bucket_scan_plain(*args), 1)
-    err = bucket_err(got, want)
-    del got, want
     cnt = CountingOps(ops)
     ck.madd_plain(cnt, *(jac.JPoint(*(a[i:i + 1] for a in tab))
                          for i in (0, 1)))
+    rows = tab.z.shape[0]
     elem_b = 32 * (1 if g == "g1" else 2)
-    b = n // 64
-    byt = (3 * elem_b * n + 2 * 8 * W * n + W * nb * (3 * elem_b + 9)
-           + 3 * elem_b * b * W)
-    bnd = bound(byt, W * n * (cnt.muls * MULADDS_PER_MONT_MUL
-                              + cnt.adds * OPS_PER_ADD))
-    name = f"bucket_scan_{g}"
-    results[name].update(shape=[W, c, n], ms=ms,
-                         plain_ms=plain_ms, path_shape_err=err,
-                         checked_shapes=[[W, c, n]], **bnd)
-    log(f"[timing] {name} W={W} c={c} n={n}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
-        f"({bnd['bound_by']}); max |kernel - plain| = {err}")
+    b = -(-rows // 64)
+    byt = (3 * elem_b * rows + 2 * 8 * windows * rows
+           + windows * nb * (3 * elem_b + 9) + 3 * elem_b * b * windows)
+    return bound(byt, windows * points * (cnt.muls * MULADDS_PER_MONT_MUL
+                                          + cnt.adds * OPS_PER_ADD))
 
 
-# the keccak path's C MSM (`examples/keccak_proof.py`, n = 2^18): its
-# scalars are the witness tail, num_wires - input - 1 = 231,761 values of
-# 0 or 1 padded with zeros (and the points with infinity) to 2^18, so
-# window 0's digits are 0 / 1 and windows 1-15 hold one digit-0 run
-C_MSM_SHAPE = {"windows": 16, "c": 16, "n": 1 << 18, "points": 231761}
-
-
-def bucket_c_msm(rnd_elem, gen, results) -> None:
-    """The G1 bucket scan at the C MSM's digit columns (one run across
-    all 4,096 chunks in 15 windows, two in window 0), the table padded
-    with infinity as the prove pads it: kernel and plain version on the
-    same inputs, compared and timed; then the same table with random
-    digits, to tell the digits' share of the time from the size's."""
+def bucket_timing(ops, g, rnd_elem, gen, results) -> None:
+    """The bucket scans of one 2^20 prove on the table path (`BUCKET_TABLES`:
+    one or two windows over a table of 16 m rows with a point at
+    infinity 1 time in 16, the digits of random scalars laid out w-major
+    and sorted as `msm_tables` sorts them), and the windowed
+    formulation's at one 2^20 MSM (`BUCKET_SHAPE`): the kernel and its
+    plain version, on the same inputs, timed and compared.  The entry's
+    ms / plain_ms / bound_ms / launches sum the prove's launches."""
     from zksnark_tpu_torch.curve import jacobian as jac
-    from zksnark_tpu_torch.curve.field_ops import FQ_OPS as ops
     from zksnark_tpu_torch.ops import curve_kernels as ck
     from zksnark_tpu_torch.ops import msm
 
-    W, c, n, m = (C_MSM_SHAPE[k] for k in ("windows", "c", "n", "points"))
+    c = BUCKET_SHAPE["c"]
+    nb = 1 << c
     dev = gen.device
-    pad = torch.arange(n, device=dev) >= m
-    tab = jac.JPoint(rnd_elem(n), rnd_elem(n), ops.select(
-        pad, ops.zero((n,), dev), ops.one((n,), dev)).contiguous())
-    scalars = torch.zeros((n, 8), dtype=torch.int32, device=dev)
-    scalars[:m, 0] = torch.randint(0, 2, (m,), dtype=torch.int32,
-                                   device=dev, generator=gen)
-    digits = msm._digit_columns(scalars, c)
-    if digits.shape[0] != W or int(digits[1:].max()) != 0:
-        raise SystemExit("C MSM digit columns are not as described")
+
+    def table(rows):
+        zm = torch.randint(0, 16, (rows,), device=dev, generator=gen) == 0
+        return jac.JPoint(rnd_elem(rows), rnd_elem(rows), ops.select(
+            zm, ops.zero((rows,), dev), ops.one((rows,), dev)).contiguous())
+
+    def row(tab, d_sorted, order, path):
+        windows, rows = order.shape
+        args = (ops, tab, order, d_sorted, nb, 64, True)
+        ms, got = time_cuda(lambda: ck.bucket_scan(*args), 5)
+        plain_ms, want = time_cuda(lambda: ck.bucket_scan_plain(*args), 1)
+        out = {"shape": [windows, c, rows], "path": path, "ms": ms,
+               "plain_ms": plain_ms, "err": bucket_err(got, want),
+               **bucket_bound(ops, g, tab, windows, nb, rows)}
+        log(f"[timing] bucket_scan_{g} {path} W={windows} c={c} "
+            f"rows={rows}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}); max "
+            f"|kernel - plain| = {out['err']}")
+        return out
+
+    m, sets = BUCKET_TABLES[g]
+    tab = table(msm.table_windows(c) * m)
+    per_shape = []
+    for j, launches in sets:
+        scalars = rand_limbs(gen, (j, m))
+        d_sorted, order = torch.sort(table_digits(scalars, c), dim=1)
+        per_shape.append(dict(row(tab, d_sorted, order, "tables 2^20"),
+                              launches=launches))
+        del d_sorted, order
+    del tab
+    W, n = BUCKET_SHAPE["windows"], BUCKET_SHAPE["n"]
+    d_sorted, order = torch.sort(torch.randint(
+        0, nb, (W, n), device=dev, generator=gen), dim=1)
+    per_shape.append(dict(row(table(n), d_sorted, order, "windowed 2^20"),
+                          launches=0))
+    path = [p for p in per_shape if p["launches"]]
+    name = f"bucket_scan_{g}"
+    results[name].update(
+        shape=[p["shape"] for p in path],
+        **{k: sum(p["launches"] * p[k] for p in path)
+           for k in ("ms", "plain_ms", "bound_ms")},
+        bound_by=max(path, key=lambda p: p["bound_ms"])["bound_by"],
+        launches=sum(p["launches"] for p in path),
+        path_shape_err=max(p["err"] for p in per_shape),
+        checked_shapes=[[p["path"]] + p["shape"] for p in per_shape],
+        per_shape=per_shape)
+    log(f"[timing] {name}, summed over one 2^20 prove's launches "
+        f"({results[name]['launches']}): kernel {results[name]['ms']:.4f} "
+        f"ms, bound {results[name]['bound_ms']:.4f} ms")
+
+
+# the keccak path's C MSM (`examples/keccak_proof.py`, n = 2^18) on its
+# window table: its scalars are the witness tail, num_wires - input - 1 =
+# 231,761 values of 0 or 1 padded with zeros (and the points with
+# infinity) to m = 2^18 + 3 rows a block, so the first block's digits are
+# 0 / 1 and blocks 1-15 hold one digit-0 run
+C_MSM_SHAPE = {"blocks": 16, "c": 16, "m": (1 << 18) + 3, "points": 231761}
+
+
+def bucket_c_msm(rnd_elem, gen, results) -> None:
+    """The G1 bucket scan at the C MSM's digits on its window table (one
+    run of digit 0 over 15 of the 16 blocks, two runs in the first), the
+    table padded with infinity as the prove pads it: kernel and plain
+    version on the same inputs, compared and timed; then the same table
+    with random digits, to tell the digits' share of the time from the
+    size's."""
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.curve.field_ops import FQ_OPS as ops
+    from zksnark_tpu_torch.ops import curve_kernels as ck
+
+    W, c, m, pts = (C_MSM_SHAPE[k] for k in ("blocks", "c", "m", "points"))
+    rows = W * m
+    dev = gen.device
+    pad = torch.arange(rows, device=dev) % m >= pts
+    tab = jac.JPoint(rnd_elem(rows), rnd_elem(rows), ops.select(
+        pad, ops.zero((rows,), dev), ops.one((rows,), dev)).contiguous())
+    scalars = torch.zeros((1, m, 8), dtype=torch.int32, device=dev)
+    scalars[0, :pts, 0] = torch.randint(0, 2, (pts,), dtype=torch.int32,
+                                        device=dev, generator=gen)
+    digits = table_digits(scalars, c)
+    if int(digits[:, m:].max()) != 0 or int(digits.max()) != 1:
+        raise SystemExit("C MSM digit rows are not as described")
     d_sorted, order = torch.sort(digits, dim=1)
     args = (ops, tab, order, d_sorted, 1 << c, 64, True)
     ms, got = time_cuda(lambda: ck.bucket_scan(*args), 5)
     plain_ms, want = time_cuda(lambda: ck.bucket_scan_plain(*args), 1)
     err = bucket_err(got, want)
     d_rand, o_rand = torch.sort(torch.randint(
-        0, 1 << c, (W, n), device=dev, generator=gen), dim=1)
+        0, 1 << c, (1, rows), device=dev, generator=gen), dim=1)
     args = (ops, tab, o_rand, d_rand, 1 << c, 64, True)
     rand_ms, got = time_cuda(lambda: ck.bucket_scan(*args), 5)
     err = max(err, bucket_err(got, ck.bucket_scan_plain(*args)))
     del got, want
-    cnt = CountingOps(ops)
-    ck.madd_plain(cnt, *(jac.JPoint(*(a[i:i + 1] for a in tab))
-                         for i in (0, 1)))
-    # what these inputs need: a mixed add per real point and window (the
-    # padding is infinity), the table and digits read, the slots, chunk
-    # totals and flags written
-    b = n // 64
-    byt = (3 * 32 * n + 2 * 8 * W * n + W * (1 << c) * (3 * 32 + 9)
-           + 3 * 32 * b * W)
-    bnd = bound(byt, W * m * (cnt.muls * MULADDS_PER_MONT_MUL
-                              + cnt.adds * OPS_PER_ADD))
+    bnd = bucket_bound(ops, "g1", tab, 1, 1 << c, W * pts)
     r = results["bucket_scan_g1"]
-    r["c_msm"] = {"shape": [W, c, n], "digits": "window 0 in {0, 1}, "
-                  "windows 1-15 all 0", "ms": ms, "plain_ms": plain_ms,
+    r["c_msm"] = {"shape": [1, c, rows], "digits": "block 0 in {0, 1}, "
+                  f"blocks 1-{W - 1} all 0", "ms": ms, "plain_ms": plain_ms,
                   "random_digits_ms": rand_ms, "err": err, **bnd}
     r["path_shape_err"] = max(r["path_shape_err"], err)
-    r["checked_shapes"] = r["checked_shapes"] + [[W, c, n, "0/1"]]
-    log(f"[timing] bucket_scan_g1 at the C MSM's digits W={W} c={c} "
-        f"n={n} ({m} points, window 0 in {{0, 1}}, windows 1-15 all 0): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+    r["checked_shapes"] = r["checked_shapes"] + [["tables 2^18", 1, c, rows,
+                                                  "0/1"]]
+    log(f"[timing] bucket_scan_g1 at the C MSM's table W=1 c={c} "
+        f"rows={rows} ({pts} points a block, block 0 in {{0, 1}}, blocks "
+        f"1-{W - 1} all 0): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); the same table "
         f"with random digits: kernel {rand_ms:.4f} ms; max |kernel - "
         f"plain| = {err}")
@@ -1605,8 +1675,9 @@ def chain_timing(ops, g, rnd_pts, results) -> None:
     """add_scan, double_n and horner at the path's shapes: each entry and
     its plain version, on the same inputs, timed and compared.  A row's
     ms / plain_ms / bound_ms are the sums over its shapes: one MSM's
-    worth (for horner, one launch's: a prove's four G1 MSMs, or its G2
-    MSM)."""
+    worth (for horner, one launch's on the mesh path: a prove's four G1
+    MSMs, or its G2 MSM; for double_n, one launch of setup's window
+    tables: a block of a group's sets)."""
     from zksnark_tpu_torch.curve import jacobian as jac
     from zksnark_tpu_torch.ops import curve_kernels as ck
 
@@ -1663,7 +1734,7 @@ def chain_timing(ops, g, rnd_pts, results) -> None:
         f"{dbl_us:.2f} us per dependent doubling")
 
     cases = {"add_scan": [scan_case(*s) for s in SCAN_SHAPES],
-             "double_n": [double_n_case(*DOUBLE_N_SHAPE)],
+             "double_n": [double_n_case(*DOUBLE_N_SHAPE[g])],
              "horner": [horner_case(*HORNER_SHAPE[g])]}
     for op, rows in cases.items():
         name = f"{op}_{g}"
@@ -1688,13 +1759,18 @@ def chain_timing(ops, g, rnd_pts, results) -> None:
             f"{results[name]['ms']:.4f} ms, bound {tb:.5f} ms")
 
 
-# the MSM's tail at one 2^20 MSM's shapes (c = 16, W = 16 windows, 2^14
-# chunks of 64 a window) and at 2^18 (2^12 chunks): the bucket ends of a
-# real bucket scan, every level of the block scans of the chunk carries
-# and of the tree sum (2^16 buckets a window at both sizes) with the
-# carries' fix-ups, and Abel (16 windows, 16 doublings)
-TAIL_SHAPE = {"windows": 16, "c": 16, "n": 1 << 20}
-TAIL_CHUNKS = {"2^20": 1 << 14, "2^18": 1 << 12}
+# the MSM's tail (c = 16) as the table path runs it, one tail a group and
+# prove over the chunk totals of bucket scans with a column an MSM (G1:
+# its four MSMs side by side over tables of 16 (n + 3) rows; G2: its MSM
+# over 16 (n + 2)), at n = 2^20 and 2^18; and as the windowed formulation
+# runs it (the mesh path, `msm`, `msm_windowed`) at one 2^20 MSM, 16
+# windows over 2^20 points: (label, columns, rows of the bucket scan)
+TAIL_SHAPES = {
+    "g1": [("2^20", 4, 16 * ((1 << 20) + 3)), ("2^18", 4, 16 * ((1 << 18) + 3)),
+           ("windowed 2^20", 16, 1 << 20)],
+    "g2": [("2^20", 1, 16 * ((1 << 20) + 2)), ("2^18", 1, 16 * ((1 << 18) + 2)),
+           ("windowed 2^20", 16, 1 << 20)]}
+TAIL_C = 16
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -1708,16 +1784,18 @@ def device_ms(fn, iters: int = 20) -> float:
 
 
 def tail_timing(ops, g, rnd_pts, gen, results) -> None:
-    """block_scan, add_gather and abel at the tail's shapes: each entry
-    and its plain version, on the same inputs, timed and compared; device
-    time from the profiler beside the CUDA events at the small shapes.
-    The block scans run every level of the chunk carries' prefix scan and
-    of the tree sum at the chooser's shapes, each level on the totals of
-    the one before; the carries' fix-up adds each block's carry.  The
-    bucket ends are those of a real bucket scan of 2^20 points (W = 16,
-    c = 16; window 0's digits all >= 2^15, so its first 2^15 buckets are
-    empty ahead of its first run).  An entry's ms / plain_ms / bound_ms /
-    launches sum one 2^20 MSM's launches (`*_2p18`: one 2^18 MSM's)."""
+    """block_scan, add_gather and abel at the tail's shapes (`TAIL_SHAPES`):
+    each entry and its plain version, on the same inputs, timed and
+    compared; device time from the profiler beside the CUDA events at the
+    small shapes.  For each shape: the bucket ends of a real bucket scan
+    (its first column's digits all >= 2^15, so its first 2^15 buckets are
+    empty ahead of its first run) filled over the exclusive chunk
+    carries; every level of the block scans of the chunk carries and of
+    the tree sum over the 2^16 ends at the chooser's shapes, each level
+    on the totals of the one before, with the carries' fix-ups; Abel over
+    the columns.  An entry's ms / plain_ms / bound_ms / launches sum one
+    2^20 prove's tail (`*_2p18`: one 2^18 prove's); the launches must be
+    those `tail_launches` gives the path."""
     from zksnark_tpu_torch.curve import jacobian as jac
     from zksnark_tpu_torch.ops import curve_kernels as ck
     from zksnark_tpu_torch.ops import msm
@@ -1733,6 +1811,8 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
     dbl_ops = cnt_dbl.muls * MULADDS_PER_MONT_MUL + cnt_dbl.adds * OPS_PER_ADD
     add_us = results[f"add_scan_{g}"]["thread_add_us"]
     dbl_us = results[f"add_scan_{g}"]["thread_double_us"]
+    c = TAIL_C
+    nb = 1 << c
 
     def err_of(a, b):
         if a is None or b is None:
@@ -1756,61 +1836,33 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
         byt = (flat(p).z.shape[0] + flat(q).z.shape[0] + n) * pt_b + 8 * n
         return bound(byt, formula_lanes(p, pi, q, qi) * add_ops)
 
-    def row(shape, kern, plain, bnd, iters, small=False, pair=False):
+    def row(label, shape, kern, plain, bnd, iters, small=False, pair=False):
         ms, got = time_cuda(kern, iters)
         plain_ms, want = time_cuda(plain, 1)
         err = (max(err_of(got[0], want[0]), err_of(got[1], want[1]))
                if pair else err_of(got, want))
-        out = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "err": err,
-               **bnd}
+        out = {"msm": label, "shape": shape, "ms": ms, "plain_ms": plain_ms,
+               "err": err, **bnd}
         if small:
             out["device_ms"] = device_ms(kern)
         return out
 
-    # the bucket ends
-    W, c, n = (TAIL_SHAPE[k] for k in ("windows", "c", "n"))
-    nb = 1 << c
-    zm = torch.randint(0, 16, (n,), device=dev, generator=gen) == 0
-    p = rnd_pts(n)
-    tab = jac.JPoint(p.x, p.y, ops.select(
-        zm, ops.zero((n,), dev), ops.one((n,), dev)).contiguous())
-    digits = torch.randint(0, nb, (W, n), device=dev, generator=gen)
-    digits[0] |= nb // 2
-    d_sorted, order = torch.sort(digits, dim=1)
-    ends_w, chunk, valid, totals = ck.bucket_scan(ops, tab, order, d_sorted,
-                                                  nb, 64, True)
-    del p, tab, digits, d_sorted, order
-    b = totals.z.shape[0]
-    carry = msm._prefix_scan(ops, msm._cat(
-        jac.infinity(ops, (1, W), dev), msm._index(totals, slice(0, b - 1))))
-    pi, qi = msm._fill_indices(chunk, valid)
-    leading = bool((pi[:nb // 2, 0] < 0).all())
-    ends = row([nb, W], lambda: ck.add_gather(ops, carry, pi, ends_w, qi),
-               lambda: ck.add_gather_plain(ops, carry, pi, ends_w, qi),
-               gather_bound(carry, pi, ends_w, qi), 10)
-    ends["msm"] = "2^20"
-    del ends_w, chunk, valid, totals, carry, pi, qi
-    gathers, scans = [ends], []
-
-    # the block scans, level by level, and the carries' fix-ups
-    for label, rows, collect in (("2^20", TAIL_CHUNKS["2^20"], True),
-                                 ("2^18", TAIL_CHUNKS["2^18"], True),
-                                 ("2^20", nb, False)):
-        level = rnd_pts(rows * W)
-        level = jac.JPoint(*(a.reshape((rows, W) + a.shape[1:])
-                             for a in level))
+    def levels(label, level, collect):
+        """every block scan level of a (rows, columns) level, and where it
+        collects, the fix-ups of its carries"""
+        cols = level.z.shape[1]
+        scans, gathers = [], []
         while level.z.shape[0] > 1:
             m = level.z.shape[0]
-            t, st = ck.block_scan_shape(m, W)
+            t, st = ck.block_scan_shape(m, cols)
             blocks = -(-m // (t * st))
-            byt = (m * W * (2 if collect else 1) + blocks * W) * pt_b
+            byt = (m * cols * (2 if collect else 1) + blocks * cols) * pt_b
             scans.append(row(
-                [m, W, t, st, int(collect)],
+                label, [m, cols, t, st, int(collect)],
                 lambda: ck.block_scan(ops, level, collect, t, st),
                 lambda: ck.block_scan_plain(ops, level, collect, t, st),
-                bound(byt, m * W * add_ops), 10, small=m * W <= 4096,
+                bound(byt, m * cols * add_ops), 10, small=m * cols <= 4096,
                 pair=True))
-            scans[-1]["msm"] = label
             scans[-1]["latency_bound_ms"] = (
                 (2 * st - 1 if collect else st) + t.bit_length() - 1
             ) * add_us / 1e3
@@ -1818,36 +1870,76 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
             if collect and blocks > 1:
                 bc = msm._prefix_scan(ops, tot)
                 i = msm._positions(ops, level, m)
-                fpi = (i // (t * st * W) - 1) * W + i % W
+                fpi = (i // (t * st * cols) - 1) * cols + i % cols
                 gathers.append(row(
-                    [m, W, t * st],
+                    label, [m, cols, t * st],
                     lambda: ck.add_gather(ops, bc, fpi, within, i),
                     lambda: ck.add_gather_plain(ops, bc, fpi, within, i),
                     gather_bound(bc, fpi, within, i), 10,
-                    small=m * W <= 4096))
-                gathers[-1]["msm"] = label
+                    small=m * cols <= 4096))
             level = tot
             del within
-        if not collect:
-            # the tree sum runs the same levels at 2^18
-            scans += [dict(r, msm="2^18") for r in scans
-                      if r["msm"] == "2^20" and not r["shape"][4]]
+        return scans, gathers
 
-    # Abel
-    k = c
-    three = [rnd_pts(W) for _ in range(3)]
-    abel = row([W, k], lambda: ck.abel(ops, *three, k),
-               lambda: ck.abel_plain(ops, *three, k),
-               bound(4 * W * pt_b, W * (2 * add_ops + k * dbl_ops)), 20,
-               small=True)
-    abel["latency_bound_ms"] = (2 * add_us + k * dbl_us) / 1e3
-    abel["msm"] = "2^20"
+    scans, gathers, abels, leading = [], [], [], True
+    for label, cols, rows in TAIL_SHAPES[g]:
+        # the bucket ends
+        zm = torch.randint(0, 16, (rows,), device=dev, generator=gen) == 0
+        p = rnd_pts(rows)
+        tab = jac.JPoint(p.x, p.y, ops.select(
+            zm, ops.zero((rows,), dev), ops.one((rows,), dev)).contiguous())
+        del p, zm
+        digits = torch.randint(0, nb, (cols, rows), device=dev, generator=gen)
+        digits[0] |= nb // 2
+        d_sorted, order = torch.sort(digits, dim=1)
+        del digits
+        ends_w, chunk, valid, totals = ck.bucket_scan(
+            ops, tab, order, d_sorted, nb, 64, True)
+        del tab, d_sorted, order
+        b = totals.z.shape[0]
+        carry = msm._prefix_scan(ops, msm._cat(
+            jac.infinity(ops, (1, cols), dev),
+            msm._index(totals, slice(0, b - 1))))
+        pi, qi = msm._fill_indices(chunk, valid)
+        leading &= bool((pi[:nb // 2, 0] < 0).all())
+        gathers.append(row(
+            label, [nb, cols],
+            lambda: ck.add_gather(ops, carry, pi, ends_w, qi),
+            lambda: ck.add_gather_plain(ops, carry, pi, ends_w, qi),
+            gather_bound(carry, pi, ends_w, qi), 10))
+        del ends_w, chunk, valid, totals, carry, pi, qi
+
+        # the block scans, level by level, and the carries' fix-ups
+        for n_rows, collect in ((b, True), (nb, False)):
+            s, f = levels(label, jac.JPoint(*(
+                a.reshape((n_rows, cols) + a.shape[1:])
+                for a in rnd_pts(n_rows * cols))), collect)
+            scans += s
+            gathers += f
+
+        # Abel
+        three = [rnd_pts(cols) for _ in range(3)]
+        abels.append(row(label, [cols, c], lambda: ck.abel(ops, *three, c),
+                         lambda: ck.abel_plain(ops, *three, c),
+                         bound(4 * cols * pt_b,
+                               cols * (2 * add_ops + c * dbl_ops)),
+                         20, small=True))
+        abels[-1]["latency_bound_ms"] = (2 * add_us + c * dbl_us) / 1e3
+        want = tail_launches(rows, c, cols)
+        for kind, got in (("block_scan", [r for r in scans
+                                          if r["msm"] == label]),
+                          ("add_gather", [r for r in gathers
+                                          if r["msm"] == label])):
+            if len(got) != want[kind]:
+                raise SystemExit(f"tail_timing {g} {label}: {len(got)} "
+                                 f"{kind} rows, the path launches "
+                                 f"{want[kind]}")
 
     for name, rows, extra in (
             (f"block_scan_{g}", scans, {}),
             (f"add_gather_{g}", gathers, {"bucket_ends_leading_empty":
                                           leading}),
-            (f"abel_{g}", [abel], {})):
+            (f"abel_{g}", abels, {})):
         for p in rows:
             log(f"[timing] {name} {p['msm']} {p['shape']}: kernel "
                 f"{p['ms']:.4f} ms"
@@ -1869,20 +1961,16 @@ def tail_timing(ops, g, rnd_pts, gen, results) -> None:
             launches=len(big),
             path_shape_err=max(p["err"] for p in rows),
             checked_shapes=[[p["msm"]] + p["shape"] for p in rows],
-            per_shape=rows, **extra)
-        if small:
-            results[name].update(
-                ms_2p18=sum(p["ms"] for p in small),
-                bound_ms_2p18=sum(p["bound_ms"] for p in small),
-                launches_2p18=len(small))
-        log(f"[timing] {name}, summed over one 2^20 MSM's launches "
-            f"({len(big)}): kernel {results[name]['ms']:.4f} ms, bound "
-            f"{results[name]['bound_ms']:.5f} ms"
-            + (f"; one 2^18 MSM's ({len(small)}): kernel "
-               f"{results[name]['ms_2p18']:.4f} ms" if small else ""))
+            per_shape=rows, ms_2p18=sum(p["ms"] for p in small),
+            bound_ms_2p18=sum(p["bound_ms"] for p in small),
+            launches_2p18=len(small), **extra)
+        log(f"[timing] {name}, summed over one 2^20 prove's tail "
+            f"({len(big)} launches): kernel {results[name]['ms']:.4f} ms, "
+            f"bound {results[name]['bound_ms']:.5f} ms; one 2^18 prove's "
+            f"({len(small)}): kernel {results[name]['ms_2p18']:.4f} ms")
     if not leading:
-        raise SystemExit("tail_timing: window 0's leading buckets are not "
-                         "empty")
+        raise SystemExit("tail_timing: the first column's leading buckets "
+                         "are not empty")
 
 
 def ptxas_summary(log_text: str) -> list:
@@ -1979,20 +2067,33 @@ def reference_phase(dev) -> None:
 def setup_expect(crs) -> dict:
     """The launches of the single-device `device_setup` that made `crs`:
     per point set one comb launch and one batch_normalize (its prefix and
-    suffix scans, `scan_launches` each, and one normalize pass); no
-    elementwise madd and no elementwise Fq product."""
+    suffix scans, `scan_launches` each, and one normalize pass); then the
+    window tables of the prove sets (`prover.WindowTables`): one double_n
+    launch a block after the first (the three G1 sets side by side) and
+    one batch_normalize a set over its W - 1 new blocks; no elementwise
+    madd and no elementwise Fq product."""
     from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.ops import msm
 
+    tables = crs.sets.tables
+    if tables is None:
+        raise SystemExit("setup built no window tables")
+    new = msm.table_windows(tables.window_bits) - 1
     n1 = [p.z.shape[0] for p in (crs.xi_g1, crs.xi_t_g1, crs.sum_delta_g1)]
+    m1, m2 = crs.sets.xi_g1.z.shape[0], crs.sets.xi_g2.z.shape[0]
     return {"comb_g1": 3, "comb_g2": 1, "madd_g1": 0, "madd_g2": 0,
-            "mont_scan_fq": sum(2 * jac.scan_launches(n) for n in n1),
-            "mont_scan_fq2": 2 * jac.scan_launches(crs.xi_g2.z.shape[0]),
-            "normalize_fq": 3, "normalize_fq2": 1, "montmul_fq": 0}
+            "mont_scan_fq": sum(2 * jac.scan_launches(n) for n in n1)
+            + 3 * 2 * jac.scan_launches(new * m1),
+            "mont_scan_fq2": 2 * jac.scan_launches(crs.xi_g2.z.shape[0])
+            + 2 * jac.scan_launches(new * m2),
+            "normalize_fq": 3 + 3, "normalize_fq2": 1 + 1, "montmul_fq": 0,
+            "double_n_g1": new, "double_n_g2": new}
 
 
 def tail_launches(m: int, c: int = 16, windows: int = 16) -> dict:
     """block_scan and add_gather launches of one MSM over m points with
-    `windows` windows of c bits (`ops/msm.py`, chunks of 64): the chunk
+    `windows` windows of c bits, or of one tail over m table rows with
+    `windows` MSMs side by side (`ops/msm.py`, chunks of 64): the chunk
     carries' prefix scan over ceil(m / 64) rows, one block scan a level
     (`block_scan_shape`) and one fix-up add_gather a level below the
     first; the bucket ends' add_gather; the tree sum over 2^c buckets,
@@ -2013,28 +2114,34 @@ def tail_launches(m: int, c: int = 16, windows: int = 16) -> dict:
 
 
 def prove_expect(dqap, crs) -> dict:
-    """The launches of one single-device `device_prove`: per MSM (four
-    G1 over max(n + 3, C's points) points, one G2 over n + 2: the
-    CRS's `prove_sets`) one bucket scan, the block scans and add_gathers
-    of `tail_launches` and one abel; the NTT kernel once per pass of each
-    of the seven transforms; no elementwise madd, add or double_n, no
-    add_scan."""
+    """The launches of one single-device `device_prove` over the CRS's
+    window tables (`prover.WindowTables`; four G1 MSMs over W tables of
+    max(n + 3, C's points) points, one G2 over W of n + 2: the CRS's
+    `prove_sets`): one bucket scan a table (A and C - h - c_delta share
+    xi_g1's), then one tail for the four G1 MSMs side by side and one for
+    the G2 MSM, each the block scans and add_gathers of `tail_launches`
+    over W m rows and one abel; no horner; the NTT kernel once per pass
+    of each of the seven transforms; no elementwise madd, add or
+    double_n, no add_scan."""
     from zksnark_tpu_torch.groth16 import prover
     from zksnark_tpu_torch.ops import msm
 
     sets = prover.prove_sets(crs)
+    if sets.tables is None:
+        raise SystemExit("the CRS has no window tables")
     m1, m2 = sets.xi_g1.z.shape[0], sets.xi_g2.z.shape[0]
     c = msm.pick_window_bits(dqap.n)
-    w = -(-256 // c)
-    t1, t2 = tail_launches(m1, c, w), tail_launches(m2, c, w)
-    return {"bucket_scan_g1": 4, "bucket_scan_g2": 1, "madd_g1": 0,
-            "madd_g2": 0, "add_g1": 0, "add_g2": 0, "double_n_g1": 0,
-            "double_n_g2": 0, "add_scan_g1": 0, "add_scan_g2": 0,
-            "block_scan_g1": 4 * t1["block_scan"],
+    w = msm.table_windows(c)
+    t1, t2 = tail_launches(w * m1, c, 4), tail_launches(w * m2, c, 1)
+    return {"madd_g1": 0, "madd_g2": 0, "add_g1": 0, "add_g2": 0,
+            "double_n_g1": 0, "double_n_g2": 0, "add_scan_g1": 0,
+            "add_scan_g2": 0, "ntt_fr": 7 * len(dqap.domain.widths),
+            "bucket_scan_g1": 3, "bucket_scan_g2": 1,
+            "block_scan_g1": t1["block_scan"],
             "block_scan_g2": t2["block_scan"],
-            "add_gather_g1": 4 * t1["add_gather"],
-            "add_gather_g2": t2["add_gather"], "abel_g1": 4,
-            "abel_g2": 1, "ntt_fr": 7 * len(dqap.domain.widths)}
+            "add_gather_g1": t1["add_gather"],
+            "add_gather_g2": t2["add_gather"], "abel_g1": 1, "abel_g2": 1,
+            "horner_g1": 0, "horner_g2": 0}
 
 
 def check_setup(label: str, launches: dict, crs) -> None:
@@ -2136,6 +2243,8 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
     if zero:
         raise SystemExit(f"kernels never launched on the main path: {zero}")
 
+    tables = table_msm_check(dqap, crs, wit)
+
     # where setup's time goes: a second setup, each phase ended by a
     # synchronize; it must make the same CRS
     from zksnark_tpu_torch.utils.profiling import PhaseTimer
@@ -2154,7 +2263,53 @@ def path_phase(dev, log_n: int, n_proves: int) -> dict:
         + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.phases.items()))
     return {"launches": total, "setup_s": setup_s, "proves": per_prove,
             "setup_phases_s": dict(timer.phases), "setup2_s": setup2_s,
-            "peak_gib": peak, "state": (dqap, crs, wit)}
+            "peak_gib": peak, "table_check": tables,
+            "state": (dqap, crs, wit)}
+
+
+def table_msm_check(dqap, crs, wit, turns: int = 3) -> dict:
+    """The prove's MSMs over the CRS's window tables (`msm_tables`) against
+    the windowed formulation (`msm_windowed_batch`, `msm_windowed`) on the
+    same sets and scalars: `_prove_core` both ways on one witness and
+    blinding, `turns` times in turns, each call ended by a synchronize;
+    the five points must be equal in affine form."""
+    import dataclasses
+
+    from zksnark_tpu_torch.curve import jacobian as jac
+    from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS
+    from zksnark_tpu_torch.field.limb import FR_CTX
+    from zksnark_tpu_torch.groth16 import prover
+    from zksnark_tpu_torch.ops import msm
+
+    dev = dqap.device
+    sets = prover.prove_sets(crs)
+    limbs, _, _ = FR_CTX.witness_limbs(wit, dqap.num_wires)
+    wm = prover.mont_mul(FR_CTX, torch.from_numpy(limbs).to(dev),
+                         FR_CTX.const("r2", dev))
+    blind = torch.from_numpy(prover._blinding_limbs(5, 6)).to(dev)
+    args = (dqap.domain, dqap.input, msm.pick_window_bits(dqap.n),
+            (dqap.u, dqap.v, dqap.w))
+    forms = {"tables": sets,
+             "windowed": dataclasses.replace(sets, tables=None)}
+    ms = {k: [] for k in forms}
+    points = {}
+    for _ in range(turns):
+        for k, s in forms.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            points[k] = prover._prove_core(*args, s, wm, blind)
+            torch.cuda.synchronize()
+            ms[k].append((time.time() - t0) * 1e3)
+    equal = [jac.to_affine_np(ops, a) == jac.to_affine_np(ops, b)
+             for ops, a, b in zip((FQ_OPS, FQ_OPS, FQ2_OPS, FQ_OPS, FQ_OPS),
+                                  points["tables"], points["windowed"])]
+    log(f"[path] _prove_core over the window tables / windowed, in turns: "
+        f"{[round(t, 2) for t in ms['tables']]} / "
+        f"{[round(t, 2) for t in ms['windowed']]} ms; the five points "
+        f"equal in affine form: {equal}")
+    if not all(equal):
+        raise SystemExit("the table MSMs differ from the windowed MSMs")
+    return {"ms": ms, "equal": equal}
 
 
 def keccak_phase(dev, n_bytes: int, n_proves: int) -> dict:
@@ -3050,15 +3205,20 @@ def profile_phase(dqap, crs, wit, table_path: str) -> None:
                           lambda: prover._blinded_scalars(u, v, blind))
     m = sets.xi_g1.z.shape[0]
     wb = msm.pick_window_bits(n)
-    jobs = [("msm G1 A (u | 1, 0, r)", sets.xi_g1, a_s),
-            ("msm G1 C' (s u + r v | s, r, rs)", sets.xi_g1, c_s),
-            ("msm G1 H (h)", sets.xi_t_g1, h[:n - 1]),
-            ("msm G1 C (witness)", sets.sum_delta_g1, tail)]
-    for label, pts, sc in jobs:
-        ss = torch.cat([sc, sc.new_zeros((m - sc.shape[0], sc.shape[1]))])
-        timed(label, lambda: msm.msm_windowed(FQ_OPS, pts, ss, wb, True))
-    timed("msm G2 B (v | 1, s)", lambda: msm.msm_windowed(
-        FQ2_OPS, sets.xi_g2, b_s, wb, True))
+
+    def pad(*parts):
+        ss = torch.cat(parts)
+        return torch.cat([ss, ss.new_zeros((m - ss.shape[0], ss.shape[1]))])
+
+    tables = sets.tables
+    timed("msm G1 A, C', H, C over the window tables (one tail)",
+          lambda: msm.msm_tables(FQ_OPS, [
+              (tables.g1_table(0), [pad(*a_s), pad(*c_s)]),
+              (tables.g1_table(1), [pad(h[:n - 1])]),
+              (tables.g1_table(2), [pad(tail)])], wb))
+    timed("msm G2 B (v | 1, s) over its window table",
+          lambda: msm.msm_tables(FQ2_OPS, [
+              (tables.g2_table(), [torch.cat(b_s)])], wb))
 
     wall_ms, busy_ms, rows, _ = profiled(
         lambda: prover.device_setup(dqap, trapdoor=(11, 22, 33, 44, 55)))

@@ -13,7 +13,8 @@ its plain version).
   (tests/test_torch_prover.py), each a ~17 s CPU run a blinding, so it is
   not run again here.
 - A CRS carried by `crs_from_jax_arrays` has no prove sets until its first
-  prove builds them; it proves the same proof.
+  prove builds them and their window tables; it proves the same proof.
+  The MSMs over the tables give the windowed MSMs' points.
 - With the host's `g1_scalar_mul` and `g2_scalar_mul` made to raise,
   `device_prove` still proves, on one device and on a mesh of two gloo
   ranks (subprocesses started at the module's start), the square chain
@@ -22,6 +23,7 @@ its plain version).
 Tolerance: exact equality.
 """
 
+import dataclasses
 import os
 import random
 import socket
@@ -43,11 +45,15 @@ from zksnark_tpu.groth16.backend import BN254Backend as JBackend  # noqa: E402
 from zksnark_tpu.groth16.qap import from_r1cs as jfrom_r1cs  # noqa: E402
 from zksnark_tpu_torch.bench import synthetic_square_chain  # noqa: E402
 from zksnark_tpu_torch.curve import bn254 as hc  # noqa: E402
+from zksnark_tpu_torch.curve import jacobian as jac  # noqa: E402
+from zksnark_tpu_torch.curve.field_ops import FQ2_OPS, FQ_OPS  # noqa: E402
 from zksnark_tpu_torch.field.host import FR  # noqa: E402
 from zksnark_tpu_torch.frontend.r1cs import R1CS  # noqa: E402
 from zksnark_tpu_torch.groth16 import protocol, prover  # noqa: E402
 from zksnark_tpu_torch.groth16.backend import BN254Backend  # noqa: E402
 from zksnark_tpu_torch.groth16.qap import from_r1cs  # noqa: E402
+from zksnark_tpu_torch.ops import msm  # noqa: E402
+from zksnark_tpu_torch.utils import profiling  # noqa: E402
 from zksnark_tpu_torch.utils import serialization as ser  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -198,7 +204,8 @@ def test_folded_prove_equals_jax_and_host(simple, name, wit, blinding):
 
 def test_carried_crs_builds_its_sets_at_first_prove(simple, tmp_path):
     """The port's CRS through the JAX package's `.npz` checkpoint and back
-    by `crs_from_jax_arrays`."""
+    by `crs_from_jax_arrays`: its first prove builds its sets and their
+    window tables (`prove.issue`'s `msm_tables` reads 5)."""
     path = str(tmp_path / "port_crs.npz")
     ser.device_crs_save(path, simple["crs"])
     with np.load(path) as f:
@@ -209,14 +216,44 @@ def test_carried_crs_builds_its_sets_at_first_prove(simple, tmp_path):
     assert carried.sets is None
     before = carried.xi_g1
     blinding = BLINDINGS["full_width"]
-    proof = prover.device_prove(simple["dq"], carried, simple["w"],
-                                blinding=blinding)
+    profiling.clear_spans()
+    with profiling.tracing():
+        proof = prover.device_prove(simple["dq"], carried, simple["w"],
+                                    blinding=blinding)
+    issue = [s for s in profiling.spans() if s.name == "prove.issue"]
+    profiling.clear_spans()
     assert carried.sets is not None
     assert carried.xi_g1.x.data_ptr() == carried.sets.xi_g1.x.data_ptr()
     for a, b in zip(carried.xi_g1, before):
         assert torch.equal(a, b)
+    assert [s.attrs["msm_tables"] for s in issue] == [prover.PROVE_MSMS]
+    tables = carried.sets.tables
+    assert tables.window_bits == msm.pick_window_bits(simple["dq"].n)
+    assert carried.xi_g2.x.data_ptr() == tables.g2.x.data_ptr()
     assert _tuple(proof) == _tuple(
         _host_prove(simple["hosts"][1], simple["w"], blinding))
+
+
+def test_table_msms_equal_the_windowed_msms(simple):
+    """`_prove_core` over the CRS's window tables and in the windowed
+    formulation (`msm_windowed_batch`, `msm_windowed`) on the same sets
+    and scalars: the same five points in affine form, so the same A, B
+    and C."""
+    dq = simple["dq"]
+    sets = prover.prove_sets(simple["crs"])
+    assert sets.tables is not None
+    limbs, _, _ = prover.FR_CTX.witness_limbs(simple["w"], dq.num_wires)
+    wm = prover.mont_mul(prover.FR_CTX, torch.from_numpy(limbs),
+                         prover.FR_CTX.const("r2", "cpu"))
+    blind = torch.from_numpy(prover._blinding_limbs(*BLINDINGS["full_width"]))
+    args = (dq.domain, dq.input, msm.pick_window_bits(dq.n),
+            (dq.u, dq.v, dq.w))
+    tabled = prover._prove_core(*args, sets, wm, blind)
+    windowed = prover._prove_core(
+        *args, dataclasses.replace(sets, tables=None), wm, blind)
+    for ops, a, b in zip((FQ_OPS, FQ_OPS, FQ2_OPS, FQ_OPS, FQ_OPS), tabled,
+                         windowed):
+        assert jac.to_affine_np(ops, a) == jac.to_affine_np(ops, b)
 
 
 @pytest.fixture(scope="module")

@@ -200,3 +200,163 @@ def test_digit_columns_match_jax(c):
     want = jmsm._digit_columns(jnp.asarray(jlimb.FR_CTX.to_limbs_np(svals)), c)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert msm.pick_window_bits(1 << 20) == jmsm.pick_window_bits(1 << 20)
+
+
+# ---------------------------------------------------------------------------
+# fixed-base window tables (`msm.window_table`, `msm.msm_tables`)
+# ---------------------------------------------------------------------------
+
+# 64 rows: k_i P for i < 30, their negatives, then 4 infinity rows (the
+# padding of the prover's sets); c = 4, and c = 5, whose windows straddle
+# the scalars' 32-bit limbs
+TABLE_N, TABLE_PAIRS = 64, 30
+GROUPS = {"g1": (FQ_OPS, hc.G1_GEN_PT, hc.g1_scalar_mul),
+          "g2": (FQ2_OPS, hc.G2_GEN, hc.g2_scalar_mul)}
+_tables = {}
+
+
+def _table_points(group):
+    """(ks, the host points, the 64 device points) of the group: the
+    host scalars k_i (0 on infinity rows) of the rows k_i P."""
+    ops, gen, smul = GROUPS[group]
+    trng = random.Random(7)
+    ks = [trng.randrange(1, 1 << 64) for _ in range(TABLE_PAIRS)]
+    ks = ks + [-k for k in ks]
+    ks += [0] * (TABLE_N - len(ks))
+    host = [smul(gen, k % R) if k else None for k in ks]
+    if group == "g1":
+        pts = jac.JPoint(*(torch.cat([a, b]) for a, b in zip(
+            _g1(ks[:2 * TABLE_PAIRS])[1],
+            jac.infinity(ops, (TABLE_N - 2 * TABLE_PAIRS,)))))
+    else:
+        from zksnark_tpu_torch.groth16.prover import _host_points_to_jac
+        pts = _host_points_to_jac(ops, host, "cpu")
+    return ks, host, pts
+
+
+def _table(group, c):
+    """The group's 64 points and their window table at c bits, built once
+    a (group, c)."""
+    if (group, c) not in _tables:
+        ks, host, pts = _table_points(group)
+        _tables[group, c] = (ks, host, pts,
+                             msm.window_table(GROUPS[group][0], pts, c))
+    return _tables[group, c]
+
+
+def _flat(table):
+    return jac.JPoint(*(a.reshape((-1,) + a.shape[2:]) for a in table))
+
+
+def _table_scalars(case, c):
+    """64 scalars of one case (unreduced: a table reads all 256 bits)."""
+    srng = random.Random(f"{case}/{c}")
+    top = c * (msm.table_windows(c) - 1)       # the top window's first bit
+    if case == "full_width":
+        return [srng.randrange(R) for _ in range(TABLE_N)]
+    if case == "zero_one":
+        return [srng.randrange(2) for _ in range(TABLE_N)]
+    if case == "all_zero":
+        return [0] * TABLE_N
+    if case == "top_window":
+        return [srng.randrange(1, 1 << (256 - top)) << top
+                for _ in range(TABLE_N)]
+    if case == "infinity_rows":
+        # full-width scalars on the infinity rows and two finite rows
+        s = [0] * TABLE_N
+        for i in [0, 7] + list(range(2 * TABLE_PAIRS, TABLE_N)):
+            s[i] = srng.randrange(R)
+        return s
+    # cancelling: rows 0-9 and their negatives share 3 digit patterns
+    # (whole buckets sum to exactly infinity), rows 10-29 stand alone
+    s = [0] * TABLE_N
+    for i in range(10):
+        s[i] = s[i + TABLE_PAIRS] = (3, 1 << 200, R - 1)[i % 3]
+    for i in range(10, TABLE_PAIRS):
+        s[i] = srng.randrange(R)
+    return s
+
+
+TABLE_CASES = ["full_width", "zero_one", "all_zero", "top_window",
+               "infinity_rows", "cancelling"]
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("c", [4, 5])
+def test_window_table_blocks(group, c):
+    """Block w of the table is 2^(c w) P on the host, at a few rows of a
+    few blocks, and every row is affine-or-infinity (Z 0 or one)."""
+    ops, _, smul = GROUPS[group]
+    ks, host, pts, table = _table(group, c)
+    W = msm.table_windows(c)
+    assert table.z.shape[:2] == (W, TABLE_N)
+    for a, b in zip(table, pts):
+        assert torch.equal(a[0], b)
+    z = _flat(table).z
+    one = ops.one(z.shape[:1], "cpu")
+    assert bool((ops.is_zero(z) | (z == one).flatten(1).all(1)).all())
+    rows = [0, 13, TABLE_PAIRS + 13, TABLE_N - 1]
+    for w in (1, W // 2, W - 1):
+        got = jac.to_affine_np(ops, jac.JPoint(*(a[w, rows] for a in table)))
+        want = [None if host[i] is None else smul(host[i], (1 << c * w) % R)
+                for i in rows]
+        if group == "g2":
+            got = [None if p is None else tuple(map(tuple, p)) for p in got]
+        assert list(got) == want
+
+
+@pytest.mark.parametrize("case", TABLE_CASES)
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("c", [4, 5])
+def test_table_msm_matches_host(group, c, case):
+    """One window over the table's W N rows gives sum_i s_i (k_i P):
+    on the host, (sum_i k_i s_i) P."""
+    ops, gen, smul = GROUPS[group]
+    ks, _, _, table = _table(group, c)
+    svals = _table_scalars(case, c)
+    (got,) = msm.msm_tables(ops, [(_flat(table), [_scalars(svals)])], c)
+    k = sum(a * b for a, b in zip(ks, svals)) % R
+    want = smul(gen, k) if k else None
+    got = jac.to_affine_np(ops, got)
+    if group == "g2" and got is not None:
+        got = tuple(map(tuple, got))
+    assert got == want
+
+
+def test_table_msm_matches_jax():
+    """Table MSMs against JAX `msm` (64 points, 4-bit windows, full-width
+    scalars, the shape `test_msm_matches_jax_and_host` compiles) over
+    tables at c = 4 and at c = 5 (windows across the limbs), and against
+    JAX `msm_naive` (8 points: 4 and their negatives, cancelling scalars,
+    the shape `test_msm_naive_matches_jax` compiles), in affine form; two
+    groups over one table (each its own sort and bucket scan, the three
+    MSMs' tails in one pass) and the port's windowed MSM on the same
+    points."""
+    ks, _, pts, table = _table("g1", 4)
+    s_full, s_bits = (_table_scalars(case, 4)
+                      for case in ("full_width", "zero_one"))
+    rows = [0, 1, 2, 3, TABLE_PAIRS, TABLE_PAIRS + 1, TABLE_PAIRS + 2,
+            TABLE_PAIRS + 3]
+    eight = jac.JPoint(*(a[rows] for a in pts))
+    s_eight = [3, 1 << 200, R - 1, 5, 3, 1 << 200, R - 1, 7]
+    # dispatched first: the JAX package computes while the port does
+    want_msm = jmsm.msm(J_FQ, _to_jax(pts), jnp.asarray(
+        jlimb.FR_CTX.to_limbs_np(s_full)), window_bits=4)
+    want_naive = jmsm.msm_naive(J_FQ, _to_jax(eight), jnp.asarray(
+        jlimb.FR_CTX.to_limbs_np(s_eight)))
+    got = msm.msm_tables(FQ_OPS, [
+        (_flat(table), [_scalars(s_full), _scalars(s_bits)]),
+        (_flat(table), [_scalars(s_full)])], 4)
+    (got8,) = msm.msm_tables(FQ_OPS, [(_flat(msm.window_table(
+        FQ_OPS, eight, 4)), [_scalars(s_eight)])], 4)
+    (got5,) = msm.msm_tables(FQ_OPS, [(_flat(_table("g1", 5)[3]),
+                                       [_scalars(s_full)])], 5)
+    windowed = msm.msm_windowed(FQ_OPS, pts, _scalars(s_full), 4, True)
+    _assert_group_equal(got[0], want_msm)
+    _assert_group_equal(got5, want_msm)
+    _assert_group_equal(got8, want_naive)
+    assert jac.to_affine_np(FQ_OPS, got[0]) == jac.to_affine_np(
+        FQ_OPS, got[2]) == jac.to_affine_np(FQ_OPS, windowed)
+    assert jac.to_affine_np(FQ_OPS, got[1]) == _expect_g1(ks, s_bits)
+    assert jac.to_affine_np(FQ_OPS, got8) == _expect_g1(
+        [ks[i] for i in rows], s_eight)

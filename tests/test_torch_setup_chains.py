@@ -321,7 +321,8 @@ def test_device_setup_timer_phases():
     t = PhaseTimer()
     timed = prover.device_setup(dq, trapdoor=(11, 22, 33, 44, 55), timer=t)
     plain = prover.device_setup(dq, trapdoor=(11, 22, 33, 44, 55))
-    assert set(t.phases) == {"scalars", "sigma (host)", "comb", "normalize"}
+    assert set(t.phases) == {"scalars", "sigma (host)", "comb", "normalize",
+                             "tables"}
     assert all(v >= 0 for v in t.phases.values())
     for name in ("xi_g1", "xi_t_g1", "sum_delta_g1", "xi_g2"):
         for a, b in zip(getattr(timed, name), getattr(plain, name)):

@@ -285,7 +285,8 @@ def test_general_r1cs_proof_equals_host_and_verifies(adder_proof):
     assert dq.v.wide is not None and counts["wide_nonzeros"] > 0
     assert counts["wide_nonzeros"] == dq.wide_nonzeros == sum(
         m.wide.nnz for m in (dq.u, dq.v, dq.w) if m.wide is not None)
-    assert [s.attrs for s in issue] == [{"wide_nonzeros": dq.wide_nonzeros}]
+    assert [s.attrs for s in issue] == [{"wide_nonzeros": dq.wide_nonzeros,
+                                         "msm_tables": 5}]
     assert any(not pts for pts in r1cs.w) and r1cs.check_satisfied(
         wit, P) == []
     roots = prover.domain_roots(dq.domain)

@@ -11,8 +11,10 @@ tests prove through the whole pipeline with the recorder on
 (`benchmark/tests/test_benchmark_spans.py`).
 """
 
+import dataclasses
 import sys
 import threading
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -375,3 +377,57 @@ def test_prove_sets_keep_the_crs_fields(circuit, tmp_path):
     for f in FIELDS:
         for a, b in zip(getattr(again, f), getattr(crs, f)):
             assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_mesh_prove_runs_no_table_msm(circuit, monkeypatch):
+    """The mesh path keeps the windowed MSMs: its prove builds no window
+    tables and `prove.issue`'s `msm_tables` reads 0 (the mesh and its
+    sharded step stood in for)."""
+    from zksnark_tpu_torch.parallel import prove_sharded
+
+    dq, _, wit, core = circuit
+    crs = _small_crs(dq)
+    steps = []
+
+    def fake_step(mesh, domain, n_input, window_bits, ells, sets, *args,
+                  **kwargs):
+        steps.append(sets.tables)
+        return core
+
+    monkeypatch.setattr(prove_sharded, "sharded_prove_step", fake_step)
+    with profiling.tracing():
+        prover.device_prove(dq, crs, wit, blinding=(8, 9),
+                            mesh=SimpleNamespace(size=2, rank=0))
+    (issue,) = [s for s in profiling.spans() if s.name == "prove.issue"]
+    assert issue.attrs["msm_tables"] == 0
+    assert steps == [None] and crs.sets.tables is None
+
+
+@pytest.mark.parametrize("room", [-1, 0])
+def test_tables_only_where_they_fit(circuit, monkeypatch, room):
+    """A CRS gets window tables where they take at most half of the device
+    memory new tensors can take (here that memory is stood in for, and so
+    is the tables' build), and decides once."""
+    dq = circuit[0]
+    crs = _small_crs(dq)
+    sets = prover.prove_sets(crs)
+    c = prover.msmod.pick_window_bits(dq.n)
+    m = sets.xi_g1.z.shape[0]
+    need = prover._table_bytes(sets, c)
+    assert need == prover.msmod.table_windows(c) * (
+        3 * m * 3 * 32 + (dq.n + 2) * 3 * 64)
+    built = []
+
+    def fake_build(sets, window_bits):
+        built.append(window_bits)
+        return dataclasses.replace(sets, tables=prover.WindowTables(
+            window_bits, None, None))
+
+    monkeypatch.setattr(prover, "_with_tables", fake_build)
+    monkeypatch.setattr(prover, "_free_bytes", lambda dev: 2 * need + room)
+    got = prover.prove_sets(crs, tables=True)
+    assert built == ([] if room < 0 else [c])
+    assert (got.tables is None) == (room < 0) and got is crs.sets
+    monkeypatch.setattr(prover, "_free_bytes", lambda dev: 1 << 62)
+    assert prover.prove_sets(crs, tables=True) is got
+    assert len(built) == (room >= 0)

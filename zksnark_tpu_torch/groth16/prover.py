@@ -10,9 +10,10 @@ unused slots hold all-zero constraint rows.
           batch_normalize (prefix products on the scan kernel)
   prove   witness x R^2 -> ELL gather-multiply-sum and the wide rows'
           CSR sums -> iNTTs -> coset-NTT
-          quotient -> five Pippenger MSMs (four G1, one G2), the
-          blinding (r, s) folded into them -> host assembly of A, B, C
-          (affine points and two adds)
+          quotient -> five Pippenger MSMs (four G1, one G2; each one
+          window over its CRS set's fixed-base window table, built at
+          setup), the blinding (r, s) folded into them -> host assembly
+          of A, B, C (affine points and two adds)
 
 Every field product runs on the montmul kernel K1, every point operation
 on K2-K4.  Randomness (when not pinned), the proof assembly and the
@@ -259,17 +260,40 @@ def domain_roots(domain: nttmod.Domain) -> List[int]:
 # ---------------------------------------------------------------------------
 
 @dataclass
+class WindowTables:
+    """The prove sets' fixed-base window tables (`ops.msm.window_table`,
+    W = `ops.msm.table_windows(window_bits)` blocks, block w = 2^(c w)
+    times the set): `g1` those of xi_g1, xi_t_g1 and sum_delta_g1, batch
+    shape (3, W, m); `g2` that of xi_g2, (W, n + 2).  Block 0 holds the
+    sets themselves."""
+
+    window_bits: int
+    g1: JPoint
+    g2: JPoint
+
+    def g1_table(self, k: int) -> JPoint:
+        """The G1 set k's table as W m rows."""
+        return JPoint(*(a[k].reshape((-1,) + a.shape[3:]) for a in self.g1))
+
+    def g2_table(self) -> JPoint:
+        return JPoint(*(a.reshape((-1,) + a.shape[2:]) for a in self.g2))
+
+
+@dataclass
 class ProveSets:
     """The point sets of a prove's MSMs, built once per CRS
     (`prove_sets`): xi_g1 followed by alpha, beta, delta, xi_t_g1 and
     sum_delta_g1, each padded with infinity to the four G1 MSMs' common
     size max(n + 3, len(sum_delta_g1)); xi_g2 followed by beta, delta.
-    Every Z is 0 or the Montgomery one, as in the CRS."""
+    Every Z is 0 or the Montgomery one, as in the CRS.  `tables`: their
+    window tables where `prove_sets` built them (the sets are then views
+    of the tables' first blocks), else None."""
 
     xi_g1: JPoint
     xi_t_g1: JPoint
     sum_delta_g1: JPoint
     xi_g2: JPoint
+    tables: Optional[WindowTables] = None
 
 
 @dataclass
@@ -287,6 +311,7 @@ class DeviceCRS:
     sigmag2: SigmaG2       # host (beta/gamma/delta; xi=None)
     sets: Optional[ProveSets] = field(default=None, repr=False,
                                       compare=False)
+    _tables_decided: bool = field(default=False, repr=False, compare=False)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
@@ -437,9 +462,12 @@ def device_setup(
     mesh: the comb encryptions run sharded over the mesh's ranks (see
     `_fixed_base_encrypt`); every rank returns the whole CRS.
 
+    Without a mesh, setup also builds the prove sets' window tables
+    (`prove_sets(tables=True)`).
+
     timer: a `utils.profiling.PhaseTimer` that gets the setup's phases
-    (the scalars, the host sigma points, comb, normalize, mesh gather),
-    each ended by a synchronize; None times nothing."""
+    (the scalars, the host sigma points, comb, normalize, mesh gather,
+    tables), each ended by a synchronize; None times nothing."""
     dev = dqap.device
     f = FR_CTX.p
     if trapdoor is None:
@@ -508,7 +536,11 @@ def device_setup(
                              sum_delta_std[dqap.input + 1:]),
         xi_g2=encrypt(FQ2_OPS, g2_base, xi_std),
         sigmag1=sigmag1, sigmag2=sigmag2)
-    prove_sets(crs)
+    if mesh is None:
+        with _phase(timer, "tables", dev):
+            prove_sets(crs, tables=True)
+    else:
+        prove_sets(crs)
     return crs
 
 
@@ -520,15 +552,52 @@ def _stack(ops, parts: Sequence[JPoint], size: int) -> JPoint:
     return JPoint(*(torch.cat(c) for c in zip(*parts, pad)))
 
 
-def prove_sets(crs: DeviceCRS) -> ProveSets:
+def _table_bytes(sets: ProveSets, window_bits: int) -> int:
+    """The bytes of the sets' window tables."""
+    return msmod.table_windows(window_bits) * sum(
+        a.numel() * a.element_size()
+        for p in (sets.xi_g1, sets.xi_t_g1, sets.sum_delta_g1, sets.xi_g2)
+        for a in p)
+
+
+def _free_bytes(device) -> Optional[int]:
+    """Device memory new tensors can take: the card's free memory and the
+    allocator's cached blocks; None off a CUDA card."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _with_tables(sets: ProveSets, window_bits: int) -> ProveSets:
+    """The sets with their window tables, the sets now views of the
+    tables' first blocks; the three G1 sets' doublings run side by side."""
+    g1 = msmod.window_table(FQ_OPS, JPoint(*(torch.stack(c) for c in zip(
+        sets.xi_g1, sets.xi_t_g1, sets.sum_delta_g1))), window_bits)
+    g2 = msmod.window_table(FQ2_OPS, sets.xi_g2, window_bits)
+    return ProveSets(*(JPoint(*(a[k, 0] for a in g1)) for k in range(3)),
+                     xi_g2=JPoint(*(a[0] for a in g2)),
+                     tables=WindowTables(window_bits, g1, g2))
+
+
+def prove_sets(crs: DeviceCRS, tables: bool = False) -> ProveSets:
     """The CRS's `ProveSets`, built at the first call (`device_setup` makes
     that call; a CRS loaded or carried from elsewhere makes it at its first
     prove) and kept on `crs`, whose four point sets then become views of
-    their first rows: each set is stored once, and no prove copies one."""
+    their first rows: each set is stored once, and no prove copies one.
+
+    tables=True (`device_setup` and `device_prove` without a mesh): the
+    first such call also decides, once per CRS, whether the sets get
+    their window tables (`WindowTables`, c = `ops.msm.pick_window_bits`
+    of n), and builds them if they take at most half of the device
+    memory new tensors can take (`_free_bytes`); else the CRS keeps the
+    windowed MSMs."""
     with crs._lock:
-        if crs.sets is None:
-            dev = crs.xi_g1.z.device
-            n = crs.xi_g1.z.shape[0]
+        sets = crs.sets
+        dev = crs.xi_g1.z.device
+        n = crs.xi_g1.z.shape[0]
+        if sets is None:
             sg1, sg2 = crs.sigmag1, crs.sigmag2
             g1_fixed = _host_points_to_jac(
                 FQ_OPS, [sg1.alpha, sg1.beta, sg1.delta], dev)
@@ -540,17 +609,27 @@ def prove_sets(crs: DeviceCRS) -> ProveSets:
                 xi_t_g1=_stack(FQ_OPS, [crs.xi_t_g1], m),
                 sum_delta_g1=_stack(FQ_OPS, [crs.sum_delta_g1], m),
                 xi_g2=_stack(FQ2_OPS, [crs.xi_g2, g2_fixed], n + 2))
+        if tables and not crs._tables_decided:
+            crs._tables_decided = True
+            c = msmod.pick_window_bits(n)
+            free = _free_bytes(dev)
+            if free is None or 2 * _table_bytes(sets, c) <= free:
+                sets = _with_tables(sets, c)
+        if sets is not crs.sets:
             for name in ("xi_g1", "xi_t_g1", "sum_delta_g1", "xi_g2"):
                 k = getattr(crs, name).z.shape[0]
-                setattr(crs, name, JPoint(*(a[:k] for a in
-                                            getattr(sets, name))))
+                setattr(crs, name, JPoint(*(a[:k]
+                                            for a in getattr(sets, name))))
             crs.sets = sets
-        return crs.sets
+        return sets
 
 
 # ---------------------------------------------------------------------------
 # Device prove
 # ---------------------------------------------------------------------------
+
+PROVE_MSMS = 5          # four G1 (A, C - h - c_delta, h, c_delta), one G2
+
 
 def _ell_sums(ell: EllMatrix, weights_mont: torch.Tensor) -> torch.Tensor:
     """The ELL's part of sum_i w_i * row_i on the domain: gather,
@@ -623,8 +702,10 @@ def _blinded_scalars(u_std, v_std, blind):
 def _prove_core(domain, n_input: int, window_bits: int, ells,
                 sets: ProveSets, weights_mont, blind, marks=None):
     """Quotient, then the four G1 MSMs over `sets` (padded to one common
-    size; their Horner tails in one launch) and the G2 MSM, the blinding
-    folded in (`_blinding_limbs` on the device as `blind`).  Returns the
+    size) and the G2 MSM, the blinding folded in (`_blinding_limbs` on
+    the device as `blind`): over the sets' window tables where they have
+    them (`ops.msm.msm_tables`), else windowed at `window_bits` (the four
+    G1 MSMs' Horner tails in one launch).  Returns the
     Jacobian (A, C - h - c_delta, B2, h, c_delta).  marks:
     `utils.profiling.StreamMarks` that get a mark after the ELL sums, one
     after the wide rows, one after the quotient and one after the G2
@@ -642,14 +723,25 @@ def _prove_core(domain, n_input: int, window_bits: int, ells,
         k = m - sum(p.shape[0] for p in parts)
         return torch.cat([*parts, parts[0].new_zeros((k, L))])
 
-    # affine=True: the sets' Z are in {0, one}; the four G1 MSMs share
-    # one Horner launch
-    a_g1, c_g1, h_xt, c_delta = msmod.msm_windowed_batch(
-        FQ_OPS, [(sets.xi_g1, pad(*a_s)), (sets.xi_g1, pad(*c_s)),
-                 (sets.xi_t_g1, pad(h_std[:n - 1])),
-                 (sets.sum_delta_g1, pad(wit_std))], window_bits, True)
-    b_g2 = msmod.msm_windowed(FQ2_OPS, sets.xi_g2, torch.cat(b_s),
-                              window_bits, True)
+    tables = sets.tables
+    if tables is not None:
+        # one window an MSM over the window tables: A and C - h - c_delta
+        # share xi_g1's sort and bucket scan, the four G1 MSMs one tail
+        a_g1, c_g1, h_xt, c_delta = msmod.msm_tables(FQ_OPS, [
+            (tables.g1_table(0), [pad(*a_s), pad(*c_s)]),
+            (tables.g1_table(1), [pad(h_std[:n - 1])]),
+            (tables.g1_table(2), [pad(wit_std)])], tables.window_bits)
+        (b_g2,) = msmod.msm_tables(FQ2_OPS, [
+            (tables.g2_table(), [torch.cat(b_s)])], tables.window_bits)
+    else:
+        # affine=True: the sets' Z are in {0, one}; the four G1 MSMs
+        # share one Horner launch
+        a_g1, c_g1, h_xt, c_delta = msmod.msm_windowed_batch(
+            FQ_OPS, [(sets.xi_g1, pad(*a_s)), (sets.xi_g1, pad(*c_s)),
+                     (sets.xi_t_g1, pad(h_std[:n - 1])),
+                     (sets.sum_delta_g1, pad(wit_std))], window_bits, True)
+        b_g2 = msmod.msm_windowed(FQ2_OPS, sets.xi_g2, torch.cat(b_s),
+                                  window_bits, True)
     if marks is not None:
         marks.mark()
     return a_g1, c_g1, b_g2, h_xt, c_delta
@@ -684,8 +776,10 @@ def device_prove(
     waiting for the card: one synchronize) and `prove.assemble` (the
     affine points and two adds; its attribute `host_scalar_muls` counts
     the host scalar multiplications run meanwhile); `prove.issue` has
-    the attribute `wide_nonzeros`, the non-zeros of the layout's wide
-    rows; on one CUDA card also the device spans `quotient` (from before
+    the attributes `wide_nonzeros`, the non-zeros of the layout's wide
+    rows, and `msm_tables`, the prove's MSMs that ran over window tables
+    (`PROVE_MSMS` without a mesh where the CRS has them, else 0); on one
+    CUDA card also the device spans `quotient` (from before
     the Montgomery form to the quotient's end), `msm` (to the G2 MSM's
     end), `evals` (from before the Montgomery form to the end of the
     three weighted evaluations) and `evals_wide` (from the end of the
@@ -710,7 +804,7 @@ def device_prove(
                 sp.attrs.update(codec=codec, reduced_wires=reduced)
 
         with profiling.span("prove.issue",
-                            wide_nonzeros=dqap.wide_nonzeros):
+                            wide_nonzeros=dqap.wide_nonzeros) as sp:
             marks = profiling.stream_marks(dev) if mesh is None else None
             w_std = torch.from_numpy(w_limbs).to(dev)
             blind = torch.from_numpy(blind_limbs).to(dev)
@@ -718,7 +812,11 @@ def device_prove(
                 marks.mark()
             weights_mont = mont_mul(FR_CTX, w_std, FR_CTX.const("r2", dev))
             ells = (dqap.u, dqap.v, dqap.w)
-            sets = prove_sets(crs)
+            sets = prove_sets(crs, tables=mesh is None)
+            if sp is not None:
+                sp.attrs["msm_tables"] = (
+                    PROVE_MSMS if mesh is None and sets.tables is not None
+                    else 0)
             if mesh is None:
                 a_g1, c_g1, b_g2, h_xt, c_delta = _prove_core(
                     dqap.domain, dqap.input, msmod.pick_window_bits(dqap.n),

@@ -31,6 +31,13 @@ The block scans associate the tail's adds otherwise than the JAX
 package's chunked scans, so a window sum or an MSM is another Jacobian
 representative of the JAX package's point: equal in affine form.
 
+Fixed-base form (the prover's MSMs, whose points are fixed per CRS):
+`window_table` precomputes 2^(c w) P for every window w, and
+`msm_tables` runs an MSM as ONE window of 2^c buckets over those W N
+rows, sum_i s_i P_i = sum_i sum_w d_{i,w} (2^(c w) P_i): the same bucket
+scan work, one tail instead of W and no Horner.  The generic `msm`,
+`msm_windowed` and the mesh path keep the windowed form.
+
 Scalars are standard-form (N, 8) int32 limbs; points are `JPoint` batches.
 """
 
@@ -183,18 +190,24 @@ def _bucket_windows_sorted(ops, pts: JPoint, order: torch.Tensor,
     """sum_i digit_i * P_i for every window at once, given the per-window
     sort permutation `order` and sorted digits `d_sorted` (both (W, N)).
     Returns the (W,) window sums."""
-    W, n = order.shape
-    dev = pts.z.device
-    cdim = min(_CHUNK, n)
-    b = -(-n // cdim)
-
     # one launch: each (window, chunk of cdim sorted positions) lane scans
     # its points and leaves the within-chunk prefix at every run end in
     # its bucket's slot (ends_w), with the chunk index and a validity
     # flag; empty buckets keep (infinity, chunk 0), and carry[0] is
     # infinity
-    ends_w, bucket_chunk, valid, totals = ck.bucket_scan(
-        ops, pts, order, d_sorted, num_buckets, cdim, affine)
+    cdim = min(_CHUNK, order.shape[1])
+    return _bucket_tail(ops, *ck.bucket_scan(
+        ops, pts, order, d_sorted, num_buckets, cdim, affine), num_buckets)
+
+
+def _bucket_tail(ops, ends_w: JPoint, bucket_chunk: torch.Tensor,
+                 valid: torch.Tensor, totals: JPoint,
+                 num_buckets: int) -> JPoint:
+    """The (W,) Abel sums sum_j j*B_j of W windows from their bucket scan
+    (`curve_kernels.bucket_scan`'s slots, chunk indices, validity flags
+    and (B, W) chunk totals)."""
+    b, W = totals.z.shape[:2]
+    dev = totals.z.device
 
     # exclusive chunk carries (~2B general adds)
     shifted = _cat(jac.infinity(ops, (1, W), dev),
@@ -244,6 +257,78 @@ def msm_windowed_batch(ops, jobs, window_bits: int,
     out = ck.horner(ops, JPoint(*(torch.stack(c, dim=1)
                                   for c in zip(*sums))), window_bits)
     return [_index(out, i) for i in range(len(jobs))]
+
+
+def table_windows(window_bits: int) -> int:
+    """W = ceil(256 / c): the blocks of a window table, the windows of a
+    full-width scalar."""
+    return -(-32 * L // window_bits)
+
+
+def window_table(ops, pts: JPoint, window_bits: int) -> JPoint:
+    """The fixed-base window table of affine-or-infinity points P of batch
+    shape (..., N): batch shape (..., W, N), block w = 2^(c w) P for
+    w < W = `table_windows(c)`, every row affine-or-infinity.  Block
+    w + 1 is block w after c doublings (one `double_n` launch a block for
+    every set of the leading axes); then one `batch_normalize` a set over
+    its W - 1 new blocks (one host inverse a set).  Block 0 is P."""
+    e = ops.elem_ndim
+    k = pts.z.dim() - e - 1                   # leading axes
+    W = table_windows(window_bits)
+    table = JPoint(*(a.new_empty(a.shape[:k] + (W,) + a.shape[k:])
+                     for a in pts))
+    block = pts
+    for w in range(W):
+        if w:
+            block = ck.double_n(ops, block, window_bits)
+        for t, a in zip(table, block):
+            t.select(k, w).copy_(a)
+    if W > 1:
+        sets = JPoint(*(t.reshape((-1, W) + t.shape[k + 1:])
+                        for t in table))
+        for s in range(sets.z.shape[0]):
+            new = JPoint(*(a[s, 1:] for a in sets))
+            for a, b in zip(new, jac.batch_normalize(ops, new)):
+                a.copy_(b)
+    return table
+
+
+def msm_tables(ops, groups, window_bits: int) -> list:
+    """Fixed-base MSMs over window tables (`window_table`).  With
+    d_{i,w} the c-bit digits of s_i,
+        sum_i s_i P_i = sum_i sum_w d_{i,w} (2^(c w) P_i),
+    one window of 2^c buckets over the W N rows of P's table, its digit
+    column laid out w-major as the table's rows: one sort, one bucket
+    scan over W N rows, one tail (the chunk carries, the bucket ends'
+    fill and tree sum over 2^c ends, one Abel step) and no Horner.
+
+    groups: (table, [scalars, ...]) pairs: a table of W N rows in W
+    blocks (batch axes flattened) and (N, 8) standard-form scalars, every
+    table of one number of rows.  A group's MSMs are the windows of one
+    sort and one bucket scan; every MSM's tail runs in one pass, the MSMs
+    side by side as its windows.  Returns the MSMs' results, group by
+    group, each group's in its scalars' order."""
+    nb = 1 << window_bits
+    rows = groups[0][0].z.shape[0]
+    scans = []
+    for table, scalars in groups:
+        cols = torch.stack([_digit_columns(s, window_bits).reshape(-1)
+                            for s in scalars])                # (J, W N)
+        if not cols.shape[1] == table.z.shape[0] == rows:
+            raise ValueError(f"msm_tables: {cols.shape[1]} digits a scalar "
+                             f"set for a table of {table.z.shape[0]} rows, "
+                             f"every table {rows} rows")
+        d_sorted, order = torch.sort(cols, dim=1)
+        scans.append(ck.bucket_scan(ops, table, order, d_sorted, nb,
+                                    min(_CHUNK, rows), True))
+    ends_w, bucket_chunk, valid, totals = scans[0]
+    if len(scans) > 1:
+        ends_w, totals = (JPoint(*(torch.cat(c, dim) for c in zip(
+            *(s[i] for s in scans)))) for i, dim in ((0, 0), (3, 1)))
+        bucket_chunk, valid = (torch.cat([s[i] for s in scans])
+                               for i in (1, 2))
+    out = _bucket_tail(ops, ends_w, bucket_chunk, valid, totals, nb)
+    return [_index(out, j) for j in range(out.z.shape[0])]
 
 
 def pick_window_bits(n: int) -> int:
